@@ -128,17 +128,31 @@ def bench_kernel(groups: int, steps: int, warmup: int, log_window: int,
 
 
 def step_bytes(before: RaftTensors, inbox: Inbox, ticks, out, after: RaftTensors) -> int:
-    """The least bytes one step must move: the inbox and ticks read once,
-    the state (ring excluded) read once and written once, the StepOutput
-    written once, and the ring slots this step's data touches: each newly
-    written entry (term + cc, 5 B) and one 4-byte term lookup per lane for
-    each of last_index, committed and the quorum index."""
+    """The least bytes one step must move, counted from this step's data:
+    the inbox's per-slot planes and the ticks read once; of the entry
+    planes only what a handler reads (term and cc flag, 5 B, per entry of a
+    REPLICATE; the cc flag, 1 B, per entry of a PROPOSE); the state without
+    its ring read once, and written back only where an element changed; the
+    StepOutput written once; and the ring slots this step touches: each
+    newly appended entry written (term + cc, 5 B) and one 4-byte term
+    lookup per lane for each of last_index, committed and the quorum index."""
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-    ring = {"log_term", "log_is_cc"}
-    state_b = nbytes(getattr(before, f) for f in RaftTensors._fields if f not in ring)
+    entry = {"entry_terms", "entry_cc"}
+    slot_b = nbytes(getattr(inbox, f) for f in Inbox._fields if f not in entry)
+    nent = inbox.n_entries.clamp(0, inbox.entry_terms.shape[-1]).to(torch.int64)
+    entry_b = (5 * int(nent[inbox.mtype == MSG.REPLICATE].sum())
+               + int(nent[inbox.mtype == MSG.PROPOSE].sum()))
+    as_i32 = lambda t: t.view(torch.int32) if t.dtype == torch.uint32 else t
+    read_b = written_b = 0
+    for f in RaftTensors._fields:
+        if f in ("log_term", "log_is_cc"):
+            continue
+        a, b = getattr(before, f), getattr(after, f)
+        read_b += a.numel() * a.element_size()
+        written_b += int((as_i32(a) != as_i32(b)).sum()) * a.element_size()
     appended = int(torch.clamp(after.last_index - before.last_index, min=0).sum())
     G = before.term.shape[0]
-    return (nbytes(inbox) + nbytes([ticks]) + 2 * state_b + nbytes(out)
+    return (slot_b + entry_b + nbytes([ticks]) + read_b + written_b + nbytes(out)
             + appended * 5 + 3 * 4 * G)
 
 

@@ -4,8 +4,8 @@ The CUDA sources under `dragonboat_tpu_torch/csrc/` are compiled with
 `nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library per
 source (plain C interface, loaded with ctypes), at first use, into
 `build/torch_kernels/` at the repository root, keyed by a hash of the
-source and the flags. All sources build in parallel. A failed build raises
-with nvcc's output; nothing falls back to another implementation.
+source and the flags. A failed build raises with nvcc's output; nothing
+falls back to another implementation.
 
 `step_batch_cuda` is the wrapper of `csrc/step_batch.cu`: it checks every
 tensor, fills the kernel's parameter struct, launches on PyTorch's current
@@ -20,7 +20,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -42,8 +41,8 @@ NVCC_FLAGS = (
 #: kernel and nowhere else
 LAUNCHES: Dict[str, int] = {"step_batch": 0}
 
-#: per source: seconds the build took and what ptxas reported
-BUILD_INFO: Dict[str, dict] = {}
+#: per source built in this process: what ptxas reported
+PTXAS: Dict[str, str] = {}
 
 _SOURCES = ("step_batch.cu",)
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -65,31 +64,18 @@ def _target(src: str) -> str:
 
 def build_kernels() -> Dict[str, str]:
     """Compile every source that has no up-to-date library yet, one nvcc
-    per source, all started together. Returns source -> library path."""
+    per source. Returns source -> library path."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     targets = {src: _target(src) for src in _SOURCES}
-    todo = {s: t for s, t in targets.items() if not os.path.exists(t)}
-    if todo:
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        procs = {}
-        for src, tgt in todo.items():
-            tmp = f"{tgt}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
-            procs[src] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        failed = []
-        for src, (tmp, p) in procs.items():
-            out, err = p.communicate()
-            BUILD_INFO[src] = {
-                "seconds": time.perf_counter() - t0, "ptxas": (out + err).strip()
-            }
-            if p.returncode != 0:
-                failed.append(f"nvcc failed on {src} (exit {p.returncode}):\n{out}{err}")
-            else:
-                os.replace(tmp, todo[src])
-        if failed:
-            raise RuntimeError("\n".join(failed))
+    for src, tgt in targets.items():
+        if os.path.exists(tgt):
+            continue
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tgt, os.path.join(CSRC, src)]
+        p = subprocess.run(cmd, capture_output=True, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (exit {p.returncode}):\n"
+                               f"{p.stdout}{p.stderr}")
+        PTXAS[src] = (p.stdout + p.stderr).strip()
     return targets
 
 
@@ -186,9 +172,9 @@ def empty_output(cfg: KernelConfig, device) -> StepOutput:
 
 
 def make_params(s: RaftTensors, inbox: Inbox, ticks, out: StepOutput,
-                cfg: KernelConfig, device_type: str = "cuda") -> StepParams:
-    """Check every tensor (device, dtype, shape, contiguity) and fill the
-    kernel's parameter struct."""
+                cfg: KernelConfig) -> StepParams:
+    """Check every tensor (one device, dtype, shape, contiguity) and fill
+    the kernel's parameter struct with their addresses."""
     G, P, K, R = cfg.groups, cfg.peers, cfg.inbox_depth, cfg.readindex_depth
     if not (1 <= P <= PMAX and 1 <= R <= RMAX and 1 <= K <= KMAX):
         raise ValueError(
@@ -207,7 +193,7 @@ def make_params(s: RaftTensors, inbox: Inbox, ticks, out: StepOutput,
     for name in _PTR_FIELDS:
         t = tensors[name]
         shape, dt = exp[name]
-        if not isinstance(t, torch.Tensor) or t.device.type != device_type or t.device != dev:
+        if not isinstance(t, torch.Tensor) or t.device != dev:
             raise ValueError(f"step_batch: {name} must be a tensor on {dev}")
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(
@@ -227,9 +213,12 @@ def prepare_step(
 ) -> Tuple[StepParams, StepOutput]:
     """Check the tensors and fill the parameter struct for one launch of
     csrc/step_batch.cu (allocating `out` when None)."""
+    if s.term.device.type != "cuda":
+        raise ValueError(f"step_batch kernel: tensors must be on a CUDA device, "
+                         f"got {s.term.device}")
     if out is None:
         out = empty_output(cfg, s.term.device)
-    return make_params(s, inbox, ticks, out, cfg, "cuda"), out
+    return make_params(s, inbox, ticks, out, cfg), out
 
 
 def launch_step(params: StepParams, device) -> None:
