@@ -9,6 +9,13 @@ Times come from CUDA events around each step after a warm-up. The module
 also carries the byte count of one step (for its bound on the card) and a
 seeded random inbox generator used to hold the kernel against its plain
 version.
+
+It also builds the config-6 super-step cluster (`superstep_cluster`,
+`host_window`, `compact`): config 2's 1024 groups x 3 replicas co-hosted in
+one state of 3072 lanes, driven K=8 inner steps per super-step, with the
+byte counts of the router and gather kernels (`route_columns_bytes`,
+`route_scatter_bytes`, `ring_gather_bytes`) and a seeded random router case
+(`random_route_case`).
 """
 from __future__ import annotations
 
@@ -21,9 +28,16 @@ import torch
 from .ops.kernel import _term_at, step_batch
 from .ops.state import (
     MSG,
+    ROLE,
+    SEND_HEARTBEAT,
+    SEND_REPLICATE,
+    SEND_TIMEOUT_NOW,
+    SEND_VOTE_REQ,
     Inbox,
     KernelConfig,
     RaftTensors,
+    StepOutput,
+    _mix_t,
     configure_groups_uniform,
     init_state,
     make_empty_inbox,
@@ -199,3 +213,223 @@ def random_inbox(rng: np.random.Generator, st: Dict[str, np.ndarray],
         entry_terms=i32(term[:, :, None] + rng.integers(-1, 1, size=(G, K, E))),
         entry_cc=rng.random((G, K, E)) < 0.15,
     )
+
+
+# ---------------------------------------------------------------------------
+# the config-6 super-step cluster: config 2's co-hosted fleet at K=8
+# ---------------------------------------------------------------------------
+
+
+def superstep_config(groups: int = 1024, replicas: int = 3) -> KernelConfig:
+    """The engine shape of config 6 (bench.py:1149-1157: config 2's
+    workload at steps_per_sync=8, bench.py:207-222 widths) with all
+    replicas co-hosted in one state, as the shared-scope engine holds them
+    (bench.py:309-320)."""
+    return KernelConfig(groups=groups * replicas, peers=max(replicas, 4), log_window=256,
+                        inbox_depth=4, max_entries_per_msg=64, readindex_depth=4)
+
+
+def superstep_cluster(groups: int, replicas: int, cfg: KernelConfig, device="cuda",
+                      election_timeout: int = 300, heartbeat_timeout: int = 30):
+    """groups x replicas lanes in ONE state: lane r*groups + j is replica r
+    (self slot r) of group j, with slots 0..replicas-1 voting. Returns
+    (state, route, rdelta): route[g, p] is the lane of slot p's replica
+    (-1 for the lane's own slot and for unused slots) and rdelta is 0 (one
+    window base per group). Timeouts follow config 6 (election_rtt=300,
+    heartbeat_rtt=30, bench.py:335-336)."""
+    dev = resolve_device(device)
+    G, P = cfg.groups, cfg.peers
+    if G != groups * replicas or replicas > P:
+        raise ValueError(f"cfg must hold {groups} x {replicas} lanes of <= {P} slots")
+    s = init_state(cfg, device=dev)
+    lane = torch.arange(G, dtype=torch.int64, device=dev)
+    self_slot = lane // groups
+    slots = torch.arange(P, dtype=torch.int64, device=dev)[None, :]
+    voting = (slots < replicas).expand(G, P).clone()
+    x = _mix_t(s.seed.to(torch.int64), 0, self_slot)
+    et = election_timeout
+    full = lambda v, dt: torch.full((G,), v, dtype=dt, device=dev)
+    s = s._replace(
+        active=full(True, torch.bool),
+        self_slot=self_slot.to(torch.int32),
+        member=voting,
+        voting=voting.clone(),
+        role=full(ROLE.FOLLOWER, torch.int32),
+        election_timeout=full(et, torch.int32),
+        heartbeat_timeout=full(heartbeat_timeout, torch.int32),
+        rand_timeout=(et + x % et).to(torch.int32),
+    )
+    peer_lane = slots * groups + (lane % groups)[:, None]
+    routed = (slots < replicas) & (slots != self_slot[:, None])
+    route = torch.where(routed, peer_lane, torch.full_like(peer_lane, -1)).to(torch.int32)
+    return s, route.contiguous(), torch.zeros((G, P), dtype=torch.int32, device=dev)
+
+
+def compact(state: RaftTensors) -> RaftTensors:
+    """Engine-side compaction between super-steps, in place: applied entries
+    leave the device window (first_index = applied + 1)."""
+    state.marker_term.copy_(_term_at(state, state.applied))
+    state.first_index.copy_(state.applied + 1)
+    return state
+
+
+def _enc_ctx(origin_slot, low):
+    """The engine's two-plane ReadIndex ctx (engine/vector.py:168-185):
+    (origin_slot + 1) << 24 | low[0:24] and low[24:55]."""
+    return ((origin_slot + 1) << 24) | (low & 0xFFFFFF), (low >> 24) & 0x7FFFFFFF
+
+
+def host_window(window: int, resid_count: torch.Tensor, leaders: np.ndarray, groups: int,
+                replicas: int, cfg: KernelConfig, rng: np.random.Generator,
+                device="cuda"):
+    """The host events of one super-step of the config-6 scenario, packed
+    at each lane's first free slot after its residual rows (as the engine's
+    _pack does and tests/test_multistep.py:437-475 mirror); an event that
+    finds no free slot is dropped. Reads `resid_count` back once (the
+    engine's one D2H per super-step). `leaders[j]` is the lane the host
+    believes leads group j; returns (inbox, leaders after this window).
+
+    Window 0 elects replica 0 of every group. Every later window proposes
+    n_entries in [1, E] (16 B payloads on the host) at each leader lane;
+    windows 3, 5 and 7 add a READ_INDEX at each leader lane whose ctx names
+    a follower slot as origin, so its confirmation routes back as a
+    forwarded read; window 4 campaigns replica 1 of a quarter of the groups
+    (a leader change mid-window, no proposal there); window 6 asks an
+    eighth of the leaders to transfer leadership to the next replica."""
+    G, K, E = cfg.groups, cfg.inbox_depth, cfg.max_entries_per_msg
+    count = resid_count.cpu().numpy().astype(np.int64)
+    planes = {
+        "mtype": np.full((G, K), MSG.NONE, np.int32),
+        **{f: np.zeros((G, K), np.int32) for f in
+           ("from_slot", "term", "log_index", "log_term", "commit", "hint", "hint_high",
+            "n_entries")},
+        "reject": np.zeros((G, K), bool),
+        "entry_terms": np.zeros((G, K, E), np.int32),
+        "entry_cc": np.zeros((G, K, E), bool),
+    }
+    leaders = leaders.copy()
+    j = np.arange(groups)
+
+    def put(lanes, mtype, **fields):
+        k = count[lanes]
+        ok = k < K
+        lanes, k = lanes[ok], k[ok]
+        planes["mtype"][lanes, k] = mtype
+        for name, v in fields.items():
+            planes[name][lanes, k] = np.asarray(v)[ok] if np.ndim(v) else v
+        count[lanes] += 1
+
+    if window == 0:
+        put(j, MSG.ELECTION)
+        leaders[:] = j
+        return _inbox_of(planes, device), leaders
+    propose = np.ones(groups, bool)
+    if window == 4:
+        moved = j % 4 == 0
+        propose &= ~moved
+        put(groups + j[moved], MSG.ELECTION)
+    if window == 6:
+        moving = j % 8 == 1
+        slot = leaders[moving] // groups
+        target = (slot + 1) % replicas
+        put(leaders[moving], MSG.LEADER_TRANSFER, hint=target + 1)
+        propose &= ~moving
+    put(leaders[propose], MSG.PROPOSE,
+        n_entries=rng.integers(1, E + 1, size=int(propose.sum())))
+    if window in (3, 5, 7):
+        slot = leaders // groups
+        origin = (slot + 1 + j % (replicas - 1)) % replicas
+        lo, hi = _enc_ctx(origin, window * groups + j + 1)
+        put(leaders, MSG.READ_INDEX, hint=lo, hint_high=hi)
+    if window == 4:
+        leaders[moved] = groups + j[moved]
+    if window == 6:
+        leaders[moving] = target * groups + j[moving]
+    return _inbox_of(planes, device), leaders
+
+
+def _inbox_of(planes, device) -> Inbox:
+    dev = resolve_device(device)
+    return Inbox(**{f: torch.from_numpy(planes[f]).to(dev) for f in Inbox._fields})
+
+
+# ------------------------------------------------------- router / gather bounds
+
+
+def route_columns_bytes(out, route, cfg: KernelConfig) -> int:
+    """The least bytes the columns kernel moves on this data: the StepOutput
+    planes it reads, self_slot, route and rdelta read once; the ring entries
+    of the wanted Replicates (5 B each); the slab and the plan bits written
+    once."""
+    from .ops.cuda import _COL_OUT, candidates_per_lane, slab_rows
+
+    G, P = route.shape
+    nb = lambda t: t.numel() * t.element_size()
+    read = sum(nb(getattr(out, f)) for f in _COL_OUT) + 4 * G + 2 * nb(route)
+    want = ((out.send_flags & SEND_REPLICATE) != 0) & (route >= 0)
+    ents = int(torch.clamp(out.send_n_entries, 0, cfg.max_entries_per_msg)[want].sum())
+    M = G * candidates_per_lane(cfg)
+    return read + 5 * ents + 4 * slab_rows(cfg) * M + M
+
+
+def route_scatter_bytes(n: int, Ml: int, accepted: int, nxt: Inbox, cfg: KernelConfig) -> int:
+    """The least bytes one shard's scatter moves on this data: the dest row
+    of every shard's slab read once, the other C - 1 rows of each accepted
+    candidate read once, this shard's inbox written once and one plan byte
+    per accepted candidate."""
+    from .ops.cuda import slab_rows
+
+    inbox_b = sum(t.numel() * t.element_size() for t in nxt)
+    return 4 * n * Ml + 4 * (slab_rows(cfg) - 1) * accepted + inbox_b + accepted
+
+
+def ring_gather_bytes(n: int, slab_elems: int) -> int:
+    """n slabs read once, n stacks of n slabs written once (i32)."""
+    return 4 * n * slab_elems + 4 * n * n * slab_elems
+
+
+def random_route_case(rng: np.random.Generator, cfg: KernelConfig):
+    """A seeded random (state, StepOutput, route, rdelta) draw for the
+    router at cfg's shape (numpy planes), in the manner of
+    tests/test_multistep.py's generator: every send flag and response type,
+    negative rdelta that pushes REPLICATE_RESP rejects below the window,
+    forwarded-read ctxs with origins in and out of range, and routes to any
+    lane."""
+    from .ops.convert import state_to_numpy
+    from .ops.cuda import empty_output
+
+    G, P, K, R, E, W = (cfg.groups, cfg.peers, cfg.inbox_depth, cfg.readindex_depth,
+                        cfg.max_entries_per_msg, cfg.log_window)
+    st = state_to_numpy(init_state(cfg, device="cpu"))
+    st["self_slot"] = rng.integers(0, P - 1, size=G).astype(np.int32)
+    st["log_term"] = rng.integers(1, 5, size=(G, W)).astype(np.int32)
+    st["log_is_cc"] = rng.random((G, W)) < 0.5
+    out = {f: np.zeros(t.shape, t.numpy().dtype)
+           for f, t in zip(StepOutput._fields, empty_output(cfg, "cpu"))}
+    ri = lambda lo, hi, shape: rng.integers(lo, hi, size=shape).astype(np.int32)
+    flags = np.array([0, 0, SEND_REPLICATE, SEND_HEARTBEAT, SEND_VOTE_REQ, SEND_TIMEOUT_NOW,
+                      SEND_REPLICATE | SEND_HEARTBEAT, SEND_VOTE_REQ | SEND_TIMEOUT_NOW],
+                     np.int32)
+    resp = np.array([MSG.NONE, MSG.NONE, MSG.REPLICATE_RESP, MSG.REQUEST_VOTE_RESP,
+                     MSG.REQUEST_PREVOTE_RESP, MSG.HEARTBEAT_RESP, MSG.NOOP], np.int32)
+    ctx = (ri(0, P + 2, (G, R)) << 24) | ri(0, 99, (G, R))
+    out.update(
+        send_flags=rng.choice(flags, size=(G, P)),
+        send_prev_index=ri(-3, W, (G, P)), send_prev_term=ri(0, 5, (G, P)),
+        send_n_entries=ri(0, E + 2, (G, P)), send_commit=ri(0, W, (G, P)),
+        send_hb_commit=ri(0, W, (G, P)), send_hint=ri(0, 1 << 20, (G, P)),
+        send_hint2=ri(0, 1 << 20, (G, P)), vote_last_index=ri(0, W, (G,)),
+        vote_last_term=ri(0, 5, (G,)), term=ri(1, 6, (G,)),
+        role=rng.choice(np.array([0, 1, 2, 5], np.int32), size=G),
+        resp_type=rng.choice(resp, size=(G, K)), resp_to=ri(0, P, (G, K)),
+        resp_term=ri(1, 6, (G, K)), resp_log_index=ri(0, W, (G, K)),
+        resp_reject=rng.random((G, K)) < 0.5, resp_hint=ri(0, 8, (G, K)),
+        resp_hint2=ri(0, 1 << 20, (G, K)), ready_count=ri(0, R + 1, (G,)),
+        ready_ctx=np.where(rng.random((G, R)) < 0.3, 0, ctx).astype(np.int32),
+        ready_ctx2=ri(0, 1 << 20, (G, R)), ready_index=ri(0, W, (G, R)),
+        lease_round=ri(0, 1 << 16, (G,)),
+    )
+    route = np.where(rng.random((G, P)) < 0.6, ri(0, G, (G, P)), -1).astype(np.int32)
+    route[np.arange(G), st["self_slot"]] = -1
+    rdelta = rng.choice(np.array([0, 0, 0, 2, -2, -40], np.int32), size=(G, P))
+    return st, out, route, rdelta

@@ -1,4 +1,5 @@
-"""step_batch: advance all Raft groups one protocol step.
+"""step_batch: advance all Raft groups one protocol step; the K-step
+super-step and its router; the sharded super-step.
 
 The counterpart of the JAX package's `ops/kernel.py:step_batch`. The whole
 fleet of groups advances at once:
@@ -22,6 +23,16 @@ is and keeps the CPU version fast. `step_batch` launches the hand-written
 CUDA kernel
 (`csrc/step_batch.cu`, via `ops.cuda`) for tensors on the card and runs the
 plain version for tensors on the CPU.
+
+`multi_step_batch` runs K protocol steps per call and routes co-hosted
+traffic between lanes after each one (`route_step_output`: the counterpart
+of the JAX package's scan over step_batch + route_step_output). On the card
+the router is two hand-written kernels (`csrc/route.cu`); its plain version
+is `route_step_output_reference`. `sharded_multi_step_batch` runs the same
+super-step over n lane blocks (logical shards of one device), exchanging
+the candidate slabs between blocks after every inner step through
+`_gather_candidates` (the hand-written `csrc/ring_gather.cu` on the card,
+the counterpart of the JAX package's `_pallas_ring_gather`).
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from .state import (
     Inbox,
     KernelConfig,
     RaftTensors,
+    RoutePlan,
     StepOutput,
     _mix_t,
 )
@@ -1050,8 +1062,10 @@ def step_batch(
     return step_batch_reference(s, inbox, ticks, cfg)
 
 
-def clone_state(s: RaftTensors) -> RaftTensors:
-    return RaftTensors(*(t.clone() for t in s))
+def clone_state(s):
+    """A copy of a state (or of any NamedTuple of tensors, such as an
+    Inbox) whose tensors are its own."""
+    return type(s)(*(t.clone() for t in s))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1072,3 +1086,485 @@ def make_step_fn(cfg: KernelConfig, donate: bool = True):
         return step_batch(s, inbox, ticks, cfg)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# K-step super-steps with the on-device router
+# ---------------------------------------------------------------------------
+
+
+def _add32(a, b):
+    """a + b in i32 with two's-complement wraparound (what JAX does)."""
+    b = b.to(torch.int64) if isinstance(b, torch.Tensor) else b
+    return _wrap32(a.to(torch.int64) + b)
+
+
+def route_step_output_reference(
+    s: RaftTensors, out: StepOutput, route, rdelta, cfg: KernelConfig
+) -> Tuple[Inbox, RoutePlan]:
+    """The plain PyTorch router: build the NEXT inner step's inbox from this
+    step's outputs by routing co-hosted traffic between lanes.
+
+    ``route[g, p]`` is the lane behind peer slot p of lane g (-1 = not
+    device-routable); ``rdelta[g, p]`` is the window base difference added
+    to every index-valued field. Candidates are ordered kind-major
+    (Replicate, RequestVote, Heartbeat, TimeoutNow, response plane,
+    forwarded-read responses) then row-major, and a stable sort by
+    destination lane assigns the first K arrivals of each lane to its inbox
+    slots. A candidate past its destination's K slots is not routed (its
+    RoutePlan bit stays False)."""
+    G, P = s.member.shape
+    K = cfg.inbox_depth
+    R = cfg.readindex_depth
+    dest, fields, efields = _route_columns(s, out, route, rdelta, cfg)
+    nxt, routed = _route_scatter(dest, fields, efields, G, K)
+    return nxt, _split_plan(routed, G, P, K, R)
+
+
+def route_step_output(
+    s: RaftTensors, out: StepOutput, route, rdelta, cfg: KernelConfig
+) -> Tuple[Inbox, RoutePlan]:
+    """The router between inner steps: the hand-written CUDA kernels
+    (`csrc/route.cu`) for tensors on the card, the plain version for
+    tensors on the CPU."""
+    if s.term.device.type == "cuda":
+        from .cuda import route_step_output_cuda
+
+        return route_step_output_cuda(s, out, route, rdelta, cfg)
+    return route_step_output_reference(s, out, route, rdelta, cfg)
+
+
+def _route_columns(s: RaftTensors, out: StepOutput, route, rdelta, cfg: KernelConfig):
+    """The router's candidate planes, flattened kind-major then row-major.
+    Returns (dest, fields, (entry_terms, entry_cc)): ``dest`` is the
+    destination lane per candidate (-1 = not a candidate), ``fields`` the
+    ten scalar message columns in Inbox order, and the entry planes carry
+    the Replicate payload metadata read off the sender's ring. Lane indexes
+    in ``route``/``dest`` are global: a shard block's candidates may be
+    addressed to any shard."""
+    G, P = s.member.shape
+    K = cfg.inbox_depth
+    E = cfg.max_entries_per_msg
+    R = cfg.readindex_depth
+    W = s.log_term.shape[1]
+    dev = route.device
+    flags = out.send_flags
+    self_col = s.self_slot[:, None]
+    self_gp = self_col.expand(G, P)
+    term_gp = out.term[:, None].expand(G, P)
+    zi = lambda *shape: torch.zeros(shape, dtype=i32, device=dev)
+    zb = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=dev)
+    full = lambda shape, v: torch.full(shape, v, dtype=i32, device=dev)
+    zero_gp, false_gp, zero_gk, zero_gr = zi(G, P), zb(G, P), zi(G, K), zi(G, R)
+
+    has_dest = route >= 0
+    rep_want = ((flags & SEND_REPLICATE) != 0) & has_dest
+    vote_want = ((flags & SEND_VOTE_REQ) != 0) & has_dest
+    hb_want = ((flags & SEND_HEARTBEAT) != 0) & has_dest
+    tn_want = ((flags & SEND_TIMEOUT_NOW) != 0) & has_dest
+    precand_gp = (out.role == ROLE.PRE_CANDIDATE)[:, None].expand(G, P)
+
+    # response plane: the destination is the lane behind the replied-to
+    # slot; self-addressed responses and below-window REPLICATE_RESP
+    # rejects stay host-side
+    resp_to = torch.clamp(out.resp_to, 0, P - 1).long()
+    resp_dest = torch.gather(route, 1, resp_to)
+    resp_delta = torch.gather(rdelta, 1, resp_to)
+    is_rresp = out.resp_type == MSG.REPLICATE_RESP
+    is_hbresp = out.resp_type == MSG.HEARTBEAT_RESP
+    below_window = is_rresp & out.resp_reject & (_add32(out.resp_hint, resp_delta) < 0)
+    resp_want = (
+        (out.resp_type != MSG.NONE)
+        & (resp_dest >= 0)
+        & (out.resp_to != self_col)
+        & ~below_window
+    )
+
+    # confirmed forwarded reads: READ_INDEX_RESP back to the origin slot
+    # encoded in the ctx (an arithmetic shift of the i32 ctx)
+    ridx = torch.arange(R, dtype=i32, device=dev)[None, :]
+    live = (ridx < out.ready_count[:, None]) & (out.ready_ctx != 0)
+    origin = (out.ready_ctx >> 24) - 1
+    origin_cl = torch.clamp(origin, 0, P - 1).long()
+    rir_dest = torch.gather(route, 1, origin_cl)
+    rir_delta = torch.gather(rdelta, 1, origin_cl)
+    rir_want = live & (origin >= 0) & (origin != self_col) & (rir_dest >= 0)
+
+    # Replicate entry metadata straight from the sender's ring
+    e_off = torch.arange(E, dtype=torch.int64, device=dev)[None, None, :]
+    e_idx = _wrap32(_add32(out.send_prev_index, 1).to(torch.int64)[:, :, None] + e_off)
+    e_live = (e_off < out.send_n_entries[:, :, None]) & rep_want[:, :, None]
+    slot = (e_idx % W).long().reshape(G, P * E)
+    ring_t = torch.gather(s.log_term, 1, slot).reshape(G, P, E)
+    ring_cc = torch.gather(s.log_is_cc, 1, slot).reshape(G, P, E)
+    rep_terms = torch.where(e_live, ring_t, torch.zeros_like(ring_t))
+    rep_cc = e_live & ring_cc
+    no_ents = lambda n: (zi(G, n, E), zb(G, n, E))
+
+    kinds = (
+        # (want, dest, mtype, from, term, log_index, log_term, commit,
+        #  reject, hint, hint2, n_entries, entry_terms, entry_cc)
+        (
+            rep_want, route, full((G, P), MSG.REPLICATE), self_gp, term_gp,
+            _add32(out.send_prev_index, rdelta), out.send_prev_term,
+            torch.clamp(_add32(out.send_commit, rdelta), min=0), false_gp,
+            zero_gp, zero_gp, out.send_n_entries, rep_terms, rep_cc,
+        ),
+        (
+            # a PRE_CANDIDATE lane's requests are REQUEST_PREVOTE at the
+            # prospective term
+            vote_want, route,
+            _where(precand_gp, MSG.REQUEST_PREVOTE, full((G, P), MSG.REQUEST_VOTE)),
+            self_gp, torch.where(precand_gp, _add32(term_gp, 1), term_gp),
+            _add32(out.vote_last_index[:, None], rdelta),
+            out.vote_last_term[:, None].expand(G, P), zero_gp, false_gp,
+            out.send_hint, zero_gp, zero_gp, *no_ents(P),
+        ),
+        (
+            # log_index carries the lease round tag untranslated
+            hb_want, route, full((G, P), MSG.HEARTBEAT), self_gp, term_gp,
+            out.lease_round[:, None].expand(G, P), zero_gp,
+            torch.clamp(_add32(out.send_hb_commit, rdelta), min=0), false_gp,
+            out.send_hint, out.send_hint2, zero_gp, *no_ents(P),
+        ),
+        (
+            tn_want, route, full((G, P), MSG.TIMEOUT_NOW), self_gp, term_gp,
+            zero_gp, zero_gp, zero_gp, false_gp, zero_gp, zero_gp, zero_gp,
+            *no_ents(P),
+        ),
+        (
+            resp_want, resp_dest, out.resp_type, self_col.expand(G, K),
+            out.resp_term,
+            torch.where(
+                is_rresp, _add32(out.resp_log_index, resp_delta),
+                torch.where(is_hbresp, out.resp_log_index, zero_gk),
+            ),
+            zero_gk, zero_gk,
+            out.resp_reject & (
+                is_rresp
+                | (out.resp_type == MSG.REQUEST_VOTE_RESP)
+                | (out.resp_type == MSG.REQUEST_PREVOTE_RESP)
+            ),
+            torch.where(
+                is_rresp, torch.clamp(_add32(out.resp_hint, resp_delta), min=0),
+                torch.where(is_hbresp, out.resp_hint, zero_gk),
+            ),
+            torch.where(is_hbresp, out.resp_hint2, zero_gk),
+            zero_gk, *no_ents(K),
+        ),
+        (
+            rir_want, rir_dest, full((G, R), MSG.READ_INDEX_RESP),
+            self_col.expand(G, R), out.term[:, None].expand(G, R),
+            _add32(out.ready_index, rir_delta), zero_gr, zero_gr, zb(G, R),
+            out.ready_ctx, out.ready_ctx2, zero_gr, *no_ents(R),
+        ),
+    )
+
+    def cat(col):
+        return torch.cat([k[col].reshape(-1) for k in kinds])
+
+    def cat_e(col):
+        return torch.cat([k[col].reshape(-1, E) for k in kinds])
+
+    to = cat(1)
+    dest = torch.where(cat(0), to, torch.full_like(to, -1))
+    fields = tuple(cat(c) for c in range(2, 12))
+    return dest, fields, (cat_e(12), cat_e(13))
+
+
+def _route_segments(P: int, K: int, R: int) -> Tuple[int, ...]:
+    """Per-kind candidate counts per lane row in the kind-major layout
+    (rep, vote, hb, tn, resp, rir)."""
+    return (P, P, P, P, K, R)
+
+
+def _route_scatter(dest, fields, efields, G: int, K: int):
+    """Stable-sort the flattened candidates by destination lane and scatter
+    the first K arrivals of each destination into a fresh Inbox. Returns
+    (inbox, routed), ``routed`` being the accepted mask in the original
+    candidate order. Dropped candidates go to a sentinel row G that is cut
+    off (torch's index_put_ has no mode="drop")."""
+    M = dest.shape[0]
+    E = efields[0].shape[1]
+    dev = dest.device
+    key = torch.where(dest >= 0, dest, torch.full_like(dest, G))
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    first = torch.searchsorted(skey, skey, side="left").to(i32)
+    slot = torch.arange(M, dtype=i32, device=dev) - first
+    ok = (skey < G) & (slot < K)
+    row = torch.where(ok, skey, torch.full_like(skey, G)).long()
+    col = torch.where(ok, slot, torch.zeros_like(slot)).long()
+
+    def scat(fill, vals):
+        buf = torch.full((G + 1, K) + tuple(vals.shape[1:]), fill, dtype=vals.dtype,
+                         device=dev)
+        buf[row, col] = vals[order]
+        return buf[:G]
+
+    nxt = Inbox(
+        *(scat(MSG.NONE if i == 0 else 0, f) for i, f in enumerate(fields)),
+        entry_terms=scat(0, efields[0]),
+        entry_cc=scat(False, efields[1]),
+    )
+    routed = torch.zeros((M,), dtype=torch.bool, device=dev)
+    routed[order] = ok
+    return nxt, routed
+
+
+def _split_plan(routed, G: int, P: int, K: int, R: int) -> RoutePlan:
+    """Reshape the flat accepted mask into per-kind RoutePlan planes (the
+    inverse of the kind-major flattening in _route_columns)."""
+    gp, gk = G * P, G * K
+    return RoutePlan(
+        rep=routed[0:gp].reshape(G, P),
+        vote=routed[gp:2 * gp].reshape(G, P),
+        hb=routed[2 * gp:3 * gp].reshape(G, P),
+        tn=routed[3 * gp:4 * gp].reshape(G, P),
+        resp=routed[4 * gp:4 * gp + gk].reshape(G, K),
+        rir=routed[4 * gp + gk:].reshape(G, R),
+    )
+
+
+def merge_residual(resid: Inbox, inbox: Inbox) -> Inbox:
+    """Inner step 0's inbox: the carried residual rows where occupied, the
+    host-packed rows elsewhere (the host packs at slots >= resid_count, so
+    the merge is a disjoint select; the entry planes follow their slot)."""
+    occ = resid.mtype != MSG.NONE
+
+    def mg(r, h):
+        m = occ
+        while m.dim() < r.dim():
+            m = m[..., None]
+        return torch.where(m, r, h)
+
+    return Inbox(*(mg(r, h) for r, h in zip(resid, inbox)))
+
+
+def resid_count(resid: Inbox) -> torch.Tensor:
+    """i32[G]: occupied slots of a residual inbox."""
+    return (resid.mtype != MSG.NONE).sum(dim=1).to(i32)
+
+
+def _stack(trees):
+    return type(trees[0])(*(torch.stack(planes) for planes in zip(*trees)))
+
+
+def multi_step_batch_reference(
+    s: RaftTensors, inbox: Inbox, ticks, resid: Inbox, route, rdelta,
+    cfg: KernelConfig, steps: int,
+):
+    """The plain super-step: ``steps`` sequential step_batch_reference calls
+    glued by the plain router. Inner step 0 consumes the residual merged
+    with the host inbox; host ticks apply to inner step 0 only. Returns
+    (state, stacked StepOutput, stacked RoutePlan, residual Inbox,
+    resid_count)."""
+    ibx, tks = merge_residual(resid, inbox), ticks
+    outs, plans = [], []
+    for _ in range(steps):
+        s, out = step_batch_reference(s, ibx, tks, cfg)
+        ibx, plan = route_step_output_reference(s, out, route, rdelta, cfg)
+        outs.append(out)
+        plans.append(plan)
+        tks = torch.zeros_like(tks)
+    return s, _stack(outs), _stack(plans), ibx, resid_count(ibx)
+
+
+def multi_step_batch(
+    s: RaftTensors, inbox: Inbox, ticks, resid: Inbox, route, rdelta,
+    cfg: KernelConfig, steps: int,
+):
+    """``steps`` protocol steps with co-hosted traffic routed between lanes
+    after each one. On the card: the step kernel and the router kernels,
+    writing every inner step's outputs into stacked planes allocated once
+    and updating the state and the residual in place, with no host sync. On
+    the CPU: multi_step_batch_reference."""
+    if s.term.device.type == "cuda":
+        from .cuda import multi_step_cuda
+
+        return multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg, steps)
+    return multi_step_batch_reference(s, inbox, ticks, resid, route, rdelta, cfg, steps)
+
+
+@functools.lru_cache(maxsize=None)
+def make_multi_step_fn(cfg: KernelConfig, steps: int, donate: bool = True):
+    """multi_step(state, inbox, ticks, resid, route, rdelta) -> (state,
+    outs, plans, resid, resid_count), ``steps`` inner steps per call.
+
+    With donate=True the kernel path updates the state and the residual
+    tensors in place (the JAX package donates both), so the caller must not
+    reuse what it passed; donate=False clones them first."""
+
+    def multi_step(s, inbox, ticks, resid, route, rdelta):
+        if not donate and s.term.device.type == "cuda":
+            s, resid = clone_state(s), clone_state(resid)
+        return multi_step_batch(s, inbox, ticks, resid, route, rdelta, cfg, steps)
+
+    return multi_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded super-step: n lane blocks, each with its own tensors, and the
+# candidate exchange between them after every inner step
+# ---------------------------------------------------------------------------
+
+
+def shard_tree(tree, n: int, axis: int = 0):
+    """Split a tensor or a NamedTuple of tensors into n contiguous lane
+    blocks along ``axis`` (0 for state-like trees, 1 for trees stacked over
+    inner steps), each block a tensor of its own."""
+    if isinstance(tree, torch.Tensor):
+        G = tree.shape[axis]
+        if G % n:
+            raise ValueError(f"{G} lanes do not split into {n} equal shards")
+        Gl = G // n
+        return tuple(tree.narrow(axis, i * Gl, Gl).clone(memory_format=torch.contiguous_format)
+                     for i in range(n))
+    parts = [shard_tree(t, n, axis) for t in tree]
+    return tuple(type(tree)(*(p[i] for p in parts)) for i in range(n))
+
+
+def unshard_tree(trees, axis: int = 0):
+    """Join lane blocks back into one tensor or tree along ``axis``."""
+    if isinstance(trees[0], torch.Tensor):
+        return torch.cat(list(trees), dim=axis)
+    return type(trees[0])(*(torch.cat(list(p), dim=axis) for p in zip(*trees)))
+
+
+def ring_gather_reference(slabs):
+    """The plain candidate exchange: every shard gets the (n, C, Ml) stack
+    of all n shards' (C, Ml) slabs, shard-major (lax.all_gather with
+    tiled=False)."""
+    return [torch.stack(list(slabs)) for _ in slabs]
+
+
+def _gather_candidates(slabs, outs=None):
+    """Per-shard (C, Ml) slabs -> per-shard (n, C, Ml) stacks: the
+    hand-written gather kernel (`csrc/ring_gather.cu`) for slabs on the
+    card, the plain version for slabs on the CPU."""
+    if slabs[0].device.type == "cuda":
+        from .cuda import ring_gather_cuda
+
+        return ring_gather_cuda(slabs, outs)
+    return ring_gather_reference(slabs)
+
+
+def _pack_slab(dest, fields, efields):
+    """(C, Ml) i32 with C = 11 + 2E: dest, the ten scalar columns, then E
+    entry-term rows and E entry-cc rows (bools as 0/1)."""
+    cols = [dest] + [f.to(i32) for f in fields]
+    return torch.cat([torch.stack(cols)] + [ef.to(i32).T for ef in efields])
+
+
+def _shard_route_reference(states, outs, routes, rdeltas, cfg: KernelConfig):
+    """The plain cross-shard router: every shard's candidate slab is
+    exchanged, each shard replays the global stable-sort scatter on the
+    spliced global layout and keeps its own inbox rows and its own
+    candidates' plan bits. Equal to the unsharded router on the
+    concatenated state."""
+    n = len(states)
+    Gl, P = states[0].member.shape
+    K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
+    G = n * Gl
+    slabs = [_pack_slab(*_route_columns(s, o, r, d, cfg))
+             for s, o, r, d in zip(states, outs, routes, rdeltas)]
+    gathered = _gather_candidates(slabs)
+    segs = _route_segments(P, K, R)
+    nxts, plans = [], []
+    for my, g in enumerate(gathered):
+        # within one kind, shard-major order is global row-major order
+        # because shards hold contiguous lane blocks
+        parts, off = [], 0
+        for seg in segs:
+            L = Gl * seg
+            parts.append(g[:, :, off:off + L].transpose(0, 1).reshape(g.shape[1], n * L))
+            off += L
+        gcols = torch.cat(parts, dim=1)
+        gfields = list(gcols[1:11])
+        gfields[6] = gfields[6] != 0  # reject
+        ge_terms = gcols[11:11 + E].T
+        ge_cc = gcols[11 + E:11 + 2 * E].T != 0
+        nxt_g, routed_g = _route_scatter(gcols[0], tuple(gfields), (ge_terms, ge_cc), G, K)
+        nxts.append(Inbox(*(a[my * Gl:(my + 1) * Gl] for a in nxt_g)))
+        lparts, goff = [], 0
+        for seg in segs:
+            L = Gl * seg
+            lparts.append(routed_g[goff + my * L:goff + (my + 1) * L])
+            goff += n * L
+        plans.append(_split_plan(torch.cat(lparts), Gl, P, K, R))
+    return nxts, plans
+
+
+def _shard_route(states, outs, routes, rdeltas, cfg: KernelConfig):
+    """route_step_output over n lane blocks, each with its own tensors and
+    global lane indexes in its ``route`` block: the router kernels and the
+    gather kernel for tensors on the card, the plain version on the CPU.
+    Returns (per-shard next Inbox, per-shard RoutePlan)."""
+    if states[0].term.device.type == "cuda":
+        from .cuda import shard_route_cuda
+
+        return shard_route_cuda(states, outs, routes, rdeltas, cfg)
+    return _shard_route_reference(states, outs, routes, rdeltas, cfg)
+
+
+def sharded_multi_step_batch(states, inboxes, ticks, resids, routes, rdeltas,
+                             cfg: KernelConfig, steps: int):
+    """multi_step_batch over n lane blocks: the step runs on each block with
+    the global cfg (every shape comes from the tensors), and only the
+    router between inner steps crosses blocks. Each argument is a sequence
+    of n per-shard trees; so is each result. Same results as the unsharded
+    super-step on the concatenated state."""
+    if states[0].term.device.type == "cuda":
+        from .cuda import sharded_multi_step_cuda
+
+        return sharded_multi_step_cuda(states, inboxes, ticks, resids, routes,
+                                       rdeltas, cfg, steps)
+    n = len(states)
+    sts = list(states)
+    ibxs = [merge_residual(r, h) for r, h in zip(resids, inboxes)]
+    tks = list(ticks)
+    outs, plans = [[] for _ in range(n)], [[] for _ in range(n)]
+    for _ in range(steps):
+        step_outs = []
+        for i in range(n):
+            sts[i], o = step_batch_reference(sts[i], ibxs[i], tks[i], cfg)
+            step_outs.append(o)
+            outs[i].append(o)
+        ibxs, pl = _shard_route(sts, step_outs, routes, rdeltas, cfg)
+        for i in range(n):
+            plans[i].append(pl[i])
+        tks = [torch.zeros_like(t) for t in tks]
+    return (tuple(sts), tuple(_stack(o) for o in outs), tuple(_stack(p) for p in plans),
+            tuple(ibxs), tuple(resid_count(b) for b in ibxs))
+
+
+@functools.lru_cache(maxsize=None)
+def make_sharded_multi_step_fn(cfg: KernelConfig, steps: int, devices, donate: bool = True):
+    """The sharded super-step over ``devices``, a tuple of one
+    torch.device per shard: fn(states, inboxes, ticks, resids, routes,
+    rdeltas), each a sequence of n per-shard trees (see shard_tree), ->
+    (states, outs, plans, resids, resid_counts), each a tuple of n. The
+    shards are logical: all of them live on one device (several lane blocks
+    of one card, or of the CPU). Shards on distinct cards are not supported
+    yet (ROADMAP queue 2, item G). With donate=True the kernel path updates
+    each shard's state and residual in place; donate=False clones them."""
+    devs = tuple(torch.device(d) for d in devices)
+    if len(set(devs)) != 1:
+        raise NotImplementedError(
+            "shards on distinct devices need the multi-card gather "
+            "(ROADMAP queue 2, item G); give every shard the same device")
+    n, dev = len(devs), devs[0]
+
+    def sharded_multi_step(states, inboxes, ticks, resids, routes, rdeltas):
+        args = (states, inboxes, ticks, resids, routes, rdeltas)
+        if any(len(a) != n for a in args):
+            raise ValueError(f"every argument must hold {n} shards")
+        if any(s.term.device != dev for s in states):
+            raise ValueError(f"the shards' state must live on {dev}")
+        if not donate and dev.type == "cuda":
+            states = [clone_state(s) for s in states]
+            resids = [clone_state(r) for r in resids]
+        return sharded_multi_step_batch(states, inboxes, ticks, resids, routes,
+                                        rdeltas, cfg, steps)
+
+    return sharded_multi_step

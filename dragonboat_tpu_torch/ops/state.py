@@ -258,6 +258,20 @@ class StepOutput(NamedTuple):
     counters: torch.Tensor  # u32[G, CTR.COUNT]
 
 
+class RoutePlan(NamedTuple):
+    """Which of a step's outbound messages the on-device router placed into
+    a co-hosted destination lane's next-step inbox (multi_step_batch). A
+    candidate that could not route (no co-hosted lane, inbox overflow,
+    below-window reject) stays False and falls back to the host path."""
+
+    rep: torch.Tensor  # bool[G,P] SEND_REPLICATE routed
+    vote: torch.Tensor  # bool[G,P] SEND_VOTE_REQ routed
+    hb: torch.Tensor  # bool[G,P] SEND_HEARTBEAT routed
+    tn: torch.Tensor  # bool[G,P] SEND_TIMEOUT_NOW routed
+    resp: torch.Tensor  # bool[G,K] response-plane slot routed
+    rir: torch.Tensor  # bool[G,R] confirmed forwarded-read resp routed
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. It is the card unless the caller
     names the CPU; asking for the card where there is none raises."""
