@@ -10,8 +10,10 @@ and measures the step kernel at the 50,000-group kernel regime. Phase 4
 drives the super-step path at BASELINE config 6's shape (3072 co-hosted
 lanes, K=8 inner steps with the on-device router), unsharded and as 4
 logical shards of the card exchanging candidates through the gather
-kernel, in lockstep with the plain path, and times the router and gather
-kernels. It exits
+kernel, in lockstep with the plain path, and times the router (its
+columns kernel and the scatter's insert and write passes, per pass, per
+router call and per shard) and gather kernels, and prints what ptxas
+reported for every kernel. It exits
 non-zero, printing no result, when no CUDA device is present or any phase
 fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -94,22 +96,6 @@ def time_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def time_each(setup, fn, reps):
-    """Median device time of fn() alone (CUDA events around each call),
-    with setup() run before each call outside the events."""
-    times = []
-    for _ in range(reps + 1):
-        setup()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        times.append((a, b))
-    torch.cuda.synchronize()
-    ms = sorted(a.elapsed_time(b) for a, b in times[1:])
-    return ms[len(ms) // 2]
 
 
 # ------------------------------------------------------------------ phases
@@ -270,12 +256,13 @@ def superstep_mismatches(x, y):
 
 
 def check_superstep_launches(counts, plain_calls, inner_steps, n):
-    """Every kernel of the path ran: per inner step one step launch
-    unsharded and n sharded, one gather (sharded only), and one plain step
-    on the plain path."""
+    """Every kernel of the path ran: per inner step one step, one columns
+    and one of each scatter pass unsharded and n of each sharded, one
+    gather (sharded only), and one plain step on the plain path."""
     for name, c in counts.items():
         assert c > 0, f"the super-step path launched no {name} kernel"
-    assert counts["step_batch"] == inner_steps * (1 + n), counts
+    for name in ("step_batch", "route_columns", "route_index", "route_scatter"):
+        assert counts[name] == inner_steps * (1 + n), counts
     assert counts["ring_gather"] == inner_steps, counts
     assert plain_calls == inner_steps, f"the plain path ran {plain_calls} steps"
 
@@ -511,35 +498,26 @@ def profile_superstep(K, kb, cfg, s0, route, rdelta, hosts, sharded):
     }
 
 
-def time_launch(launch, reps):
-    """Median device time of single launches (CUDA events around each)."""
-    times = []
-    for _ in range(reps + 1):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        launch()
-        b.record()
-        times.append((a, b))
-    torch.cuda.synchronize()
-    ms = sorted(a.elapsed_time(b) for a, b in times[1:])
-    return ms[len(ms) // 2]
-
-
 def phase_new_kernels(K, cuda, kb, cfg, kept):
-    """Each new kernel against its plain version on its own inputs, then
-    its time beside its bound, its plain version's and the library call's
-    (router: 8 seeded random draws at config 6's shape, unsharded and as 4
-    shards; gather: odd and even slab lengths, n in {1, 2, 4})."""
+    """Each router and gather kernel against its plain version on its own
+    inputs, then its time beside its bound, its plain version's and the
+    library call's (router: 8 seeded random draws at config 6's shape and
+    one where every routed candidate goes to one of 16 lanes, far past K,
+    each unsharded and as 4 shards; gather: odd and even slab lengths, n in
+    {1, 2, 4})."""
     from dragonboat_tpu_torch.ops.convert import state_from_numpy
-    from dragonboat_tpu_torch.ops.state import StepOutput
+    from dragonboat_tpu_torch.ops.state import MSG
 
     dev = torch.device("cuda", 0)
     G, P, n = cfg.groups, cfg.peers, SS_SHARDS
     K_, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
     rng = np.random.default_rng(SS_SEED + 1)
-    route_bad, route_cases = set(), 0
-    for i in range(8):
+    route_bad, route_cases, most = set(), 0, 0
+    for i in range(9):
         st, out, route, rdelta = kb.random_route_case(rng, cfg)
+        if i == 8:
+            # K overflow: every routed candidate of every lane to 16 lanes
+            route = np.where(route >= 0, route % 16, -1).astype(np.int32)
         s = state_from_numpy(st, dev)
         o = state_from_numpy(out, dev)
         route, rdelta = torch.from_numpy(route).to(dev), torch.from_numpy(rdelta).to(dev)
@@ -556,7 +534,11 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
         route_bad |= set(mismatches(K.unshard_tree(sh[0]), ref[0], "sharded.inbox.")
                          + mismatches(K.unshard_tree(sh[1]), ref[1], "sharded.plan."))
         route_cases += 2
-    log(f"router: {route_cases} cases, mismatched fields {sorted(route_bad) or 0}")
+        dest = K._route_columns(s, o, route, rdelta, cfg)[0]
+        most = max(most, int(torch.bincount(dest[dest >= 0]).max()))
+    assert most > K_, f"no router case sent more than K={K_} candidates to a lane"
+    log(f"router: {route_cases} cases (most candidates to one lane {most}, K={K_}), "
+        f"mismatched fields {sorted(route_bad) or 0}")
 
     gather_bad, gather_cases = set(), 0
     C = cuda.slab_rows(cfg)
@@ -585,41 +567,79 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
         for a, b in zip(work, st):
             a.copy_(b)
 
-    step_ms = time_each(restore, lambda: launcher("step_batch_launch", sp, "step_batch"), 100)
+    step_ms = kb.device_ms(lambda: launcher("step_batch_launch", sp, "step_batch"), restore, 50,
+                           ["step_batch_kernel"])["step_batch_kernel"]
     step_plain = time_ms(lambda: K.step_batch_reference(st, ib, ticks, cfg), 3)
     after, o = cuda.step_batch_cuda(K.clone_state(st), ib, ticks, cfg)
     step_bound = kb.step_bytes(st, ib, ticks, o, after) / kb.HBM_BYTES_PER_S * 1e3
 
     # the router on the step's output (unsharded: the scatter reads a
-    # gather of one shard)
+    # gather of one shard): columns, insert pass, write pass
     M = G * cuda.candidates_per_lane(cfg)
     slab = torch.empty((C, M), dtype=torch.int32, device=dev)
     nxt, plan = cuda._alloc_inbox(G, K_, E, dev), cuda._alloc_plan(G, P, K_, R, dev)
     _, route, rdelta = kb.superstep_cluster(SS_GROUPS, SS_REPLICAS, cfg, dev)
     cp = cuda._columns_params(after, o, route, rdelta, slab, plan, cfg)
-    xp = cuda._scatter_params(slab, 1, 0, G, P, nxt, plan, cfg)
-    cols_ms = time_launch(lambda: launcher("route_columns_launch", cp, "route_columns"), 100)
-    scat_ms = time_launch(lambda: launcher("route_scatter_launch", xp, "route_scatter"), 100)
-    torch.cuda.synchronize()
+    xp = cuda._scatter_params(slab, cuda.alloc_slots(G, K_, dev), 1, 0, G, P, nxt, plan, cfg)
+    names = ["route_columns_kernel", "route_index_kernel", "route_scatter_kernel"]
+
+    def router_call():
+        launcher("route_columns_launch", cp, "route_columns")
+        launcher.scatter(xp)
+
+    cols_ms, index_ms, scat_ms = kb.device_ms(router_call, lambda: None, 50, names).values()
+    call_ms = cols_ms + index_ms + scat_ms
     accepted = int(sum(int(p.sum()) for p in plan))
     route_plain = time_ms(lambda: K.route_step_output_reference(after, o, route, rdelta, cfg), 3)
-    cols_bound = kb.route_columns_bytes(o, route, cfg) / kb.HBM_BYTES_PER_S * 1e3
-    scat_bound = kb.route_scatter_bytes(1, M, accepted, nxt, cfg) / kb.HBM_BYTES_PER_S * 1e3
+    hbm = lambda nbytes: nbytes / kb.HBM_BYTES_PER_S * 1e3
+    cols_bound = hbm(kb.route_columns_bytes(o, route, cfg))
+    index_bound = hbm(kb.route_index_bytes(1, M))
+    scat_bound = hbm(kb.route_scatter_bytes(1, M, accepted, nxt, cfg)) - index_bound
+
+    # the same router as 4 shards: columns per shard, the gather, then each
+    # shard's insert and write passes over the gathered stack
+    Gl, Ml = G // n, M // n
+    parts = [K.shard_tree(x, n) for x in (after, o, route, rdelta)]
+    sslabs = [torch.empty((C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
+    sgath = [torch.empty((n, C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
+    snxt = [cuda._alloc_inbox(Gl, K_, E, dev) for _ in range(n)]
+    splan = [cuda._alloc_plan(Gl, P, K_, R, dev) for _ in range(n)]
+    for i in range(n):
+        launcher("route_columns_launch", cuda._columns_params(
+            *(x[i] for x in parts), sslabs[i], splan[i], cfg), "route_columns")
+    launcher("ring_gather_launch", cuda._gather_params(sslabs, sgath), "ring_gather")
+    sxp = [cuda._scatter_params(sgath[i], cuda.alloc_slots(G, K_, dev), n, i, Gl, P, snxt[i],
+                                splan[i], cfg) for i in range(n)]
+    per_shard = kb.device_ms(lambda: [launcher.scatter(x) for x in sxp], lambda: None, 50,
+                             names[1:])
+    shard_index_ms, shard_scat_ms = per_shard["route_index_kernel"], per_shard["route_scatter_kernel"]
+    mine = [int((x.mtype != MSG.NONE).sum()) for x in snxt]
+    bits = [int(sum(int(p.sum()) for p in pl)) for pl in splan]
+    shard_bound = sum(hbm(kb.route_scatter_bytes(n, Ml, a, x, cfg, plan_bits=b))
+                      for a, x, b in zip(mine, snxt, bits)) / n
 
     # the gather at config 6 over 4 shards: one slab per shard
     Ml = M // n
     slabs = [torch.randint(-9, 9, (C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
     outs = [torch.empty((n, C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
     gp = cuda._gather_params(slabs, outs)
-    gather_ms = time_launch(lambda: launcher("ring_gather_launch", gp, "ring_gather"), 100)
+    gather_ms = kb.device_ms(lambda: launcher("ring_gather_launch", gp, "ring_gather"),
+                             lambda: None, 50, ["ring_gather_kernel"])["ring_gather_kernel"]
     gather_plain = time_ms(lambda: K.ring_gather_reference(slabs), 20)
     gather_lib = time_ms(lambda: [torch.stack(slabs) for _ in range(n)], 20)
     gather_bound = kb.ring_gather_bytes(n, C * Ml) / kb.HBM_BYTES_PER_S * 1e3
     log(f"step_batch @ {G} lanes (config 6 window 3): kernel {step_ms:.4f} ms, "
         f"plain {step_plain:.2f} ms, bound {step_bound:.5f} ms")
     log(f"route_columns @ {M} candidates (C={C}): kernel {cols_ms:.4f} ms, bound "
-        f"{cols_bound:.5f} ms; route_scatter ({accepted} accepted): kernel {scat_ms:.4f} ms, "
-        f"bound {scat_bound:.5f} ms; plain router {route_plain:.2f} ms, library none")
+        f"{cols_bound:.5f} ms; route_index (insert pass) {index_ms:.4f} ms, bound "
+        f"{index_bound:.5f} ms; route_scatter (write pass, {accepted} accepted) "
+        f"{scat_ms:.4f} ms, bound {scat_bound:.5f} ms; scatter per router call (both passes) "
+        f"{index_ms + scat_ms:.4f} ms, bound {index_bound + scat_bound:.5f} ms; router call "
+        f"(3 kernels) {call_ms:.4f} ms; plain router {route_plain:.2f} ms, library none "
+        f"(kernel times: device durations, torch.profiler)")
+    log(f"route scatter per shard ({n} shards, {Ml} candidates each, {sum(mine)} accepted): "
+        f"insert pass {shard_index_ms:.4f} ms, write pass {shard_scat_ms:.4f} ms, both "
+        f"{shard_index_ms + shard_scat_ms:.4f} ms, bound {shard_bound:.5f} ms")
     log(f"ring_gather n={n} x ({C}, {Ml}): kernel {gather_ms:.4f} ms, plain {gather_plain:.4f} ms, "
         f"library torch.stack x{n} {gather_lib:.4f} ms, bound {gather_bound:.5f} ms")
     if route_bad or gather_bad:
@@ -628,8 +648,17 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
         "step_batch": dict(ms=step_ms, plain_ms=step_plain, bound_ms=step_bound),
         "route_columns": dict(ms=cols_ms, plain_ms=route_plain, bound_ms=cols_bound,
                               library_ms=None, cases=route_cases, bad=route_bad),
+        "route_index": dict(ms=index_ms, plain_ms=route_plain, bound_ms=index_bound,
+                            library_ms=None, cases=route_cases, bad=route_bad,
+                            per_shard_ms=shard_index_ms),
         "route_scatter": dict(ms=scat_ms, plain_ms=route_plain, bound_ms=scat_bound,
-                              library_ms=None, cases=route_cases, bad=route_bad),
+                              library_ms=None, cases=route_cases, bad=route_bad,
+                              per_shard_ms=shard_scat_ms,
+                              scatter_per_call_ms=index_ms + scat_ms,
+                              scatter_per_call_bound_ms=index_bound + scat_bound,
+                              scatter_per_shard_ms=shard_index_ms + shard_scat_ms,
+                              scatter_per_shard_bound_ms=shard_bound,
+                              router_call_ms=call_ms),
         "ring_gather": dict(ms=gather_ms, plain_ms=gather_plain, bound_ms=gather_bound,
                             library_ms=gather_lib, cases=gather_cases, bad=gather_bad),
     }
@@ -650,10 +679,15 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f}s")
-    for src, report in cuda.PTXAS.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                log(f"ptxas {src}: {line.strip()}")
+    ptxas = cuda.kernel_resources()
+    for name, r in ptxas.items():
+        log(f"ptxas {name}: {r['registers']} registers, {r['stack_frame']} bytes stack frame, "
+            f"{r['spill_stores']}/{r['spill_loads']} bytes spill stores/loads, "
+            f"{r['smem']} bytes static shared memory")
+    frames = {f"P{p}_K{k}_R{r}": cuda.step_frame_bytes(p, k, r)
+              for p, k, r in ((4, 4, 4), (8, 8, 4))}
+    log(f"step_batch dynamic shared memory per block: {frames}")
+    assert set(ptxas) == set(cuda._KERNELS), f"ptxas reported {sorted(ptxas)}"
 
     # ---- phase 1: the main path ----
     cfg, kept, launches = phase_cluster(K, cuda)
@@ -668,9 +702,9 @@ def main() -> int:
 
     # ---- timings: main-path shape, then the kernel regime ----
     def kernel_vs_plain(c, st, ib, ticks, reps_k, reps_p):
-        # kernel alone: parameters prepared once; before each launch the
-        # state is restored (outside the timed events), so every launch
-        # does the same work on the same input
+        # kernel alone (its device duration in a profiler trace):
+        # parameters prepared once; before each launch the state is
+        # restored, so every launch does the same work on the same input
         work = K.clone_state(st)
         params, out = cuda.prepare_step(work, ib, ticks, c)
         dev = st.term.device
@@ -679,7 +713,8 @@ def main() -> int:
             for a, b in zip(work, st):
                 a.copy_(b)
 
-        ms = time_each(restore, lambda: cuda.launch_step(params, dev), reps_k)
+        ms = kb.device_ms(lambda: cuda.launch_step(params, dev), restore, reps_k,
+                          ["step_batch_kernel"])["step_batch_kernel"]
         # the wrapper's host part (tensor checks, parameter fill, launch
         # call) on the host clock, each call made with the card idle so no
         # queued copy overlaps it
@@ -698,17 +733,29 @@ def main() -> int:
         return ms, host_ms, plain, nbytes
 
     st, ib, ticks = kept[len(kept) // 2]
-    ms, host_ms, plain_ms, nbytes = kernel_vs_plain(cfg, st, ib, ticks, 200, 3)
+    ms, host_ms, plain_ms, nbytes = kernel_vs_plain(cfg, st, ib, ticks, 50, 3)
     bound_ms = nbytes / kb.HBM_BYTES_PER_S * 1e3
     log(f"step_batch @ 1024 groups (P=4 W=256 K=4 E=64): kernel {ms:.4f} ms, "
         f"wrapper host part {host_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms "
         f"({nbytes} B)")
-    bms, bhost_ms, bplain_ms, bbytes = kernel_vs_plain(bcfg, *big[1:], 50, 2)
+    bms, bhost_ms, bplain_ms, bbytes = kernel_vs_plain(bcfg, *big[1:], 30, 2)
     bbound_ms = bbytes / kb.HBM_BYTES_PER_S * 1e3
     step_ms = sorted(res["step_ms"])
     log(f"step_batch @ {bcfg.groups} groups (P=8 W=512 K=8 E=8): kernel {bms:.4f} ms, "
         f"wrapper host part {bhost_ms:.4f} ms, plain {bplain_ms:.2f} ms, bound {bbound_ms:.5f} ms "
         f"({bbytes} B)")
+    # ops.state.rebase (torch ops: the engine's window rebase) at 1024 and
+    # 50,000 lanes, its kernels' device time per call beside its byte bound
+    from dragonboat_tpu_torch.ops.state import rebase
+
+    rebase_res = {}
+    for lanes, s_r in ((cfg.groups, st), (bcfg.groups, big[1])):
+        delta = torch.full((lanes,), 256, dtype=torch.int32, device=s_r.term.device)
+        r_ms = kb.device_ms(lambda: rebase(s_r, delta), lambda: None, 20)["total"]
+        r_bound = kb.rebase_bytes(s_r) / kb.HBM_BYTES_PER_S * 1e3
+        rebase_res[str(lanes)] = {"ms": r_ms, "bound_ms": r_bound}
+        log(f"rebase @ {lanes} lanes: {r_ms:.4f} ms of device time per call (torch ops), "
+            f"bound {r_bound:.5f} ms ({kb.rebase_bytes(s_r)} B)")
     log(json.dumps({
         "kernel_bench": {
             "groups": bcfg.groups, "steps": BENCH_STEPS,
@@ -761,8 +808,11 @@ def main() -> int:
                       "per_superstep": per_ss("step_batch", unsharded),
                       "per_superstep_sharded": per_ss("step_batch", sharded),
                       **nk["step_batch"]},
+        "ptxas": ptxas["step_batch_kernel"],
+        "frame_bytes": frames,
     }]}
     for name, src, line in (("route_columns", "route.cu", 1327),
+                            ("route_index", "route.cu", 1495),
                             ("route_scatter", "route.cu", 1495),
                             ("ring_gather", "ring_gather.cu", 1628)):
         r = nk[name]
@@ -775,9 +825,14 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": r["library_ms"],
             "per_superstep": per_ss(name, unsharded),
             "per_superstep_sharded": per_ss(name, sharded),
+            "ptxas": ptxas[name + "_kernel"],
+            **{k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "cases", "bad")},
         })
     kernels["superstep"] = {"unsharded": unsharded, "sharded": sharded,
                             "shards": SS_SHARDS, "card": card}
+    kernels["rebase"] = {"source": "dragonboat_tpu_torch/ops/state.py", "route": "torch ops",
+                         "replaces": "dragonboat_tpu/ops/state.py:542", **rebase_res}
     log(f"card: {card_line()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

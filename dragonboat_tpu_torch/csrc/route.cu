@@ -9,41 +9,53 @@
 // dragonboat_tpu_torch/ops/kernel.py:route_step_output_reference; these
 // kernels give the same inbox and RoutePlan bit for bit.
 //
-// Two kernels:
+// Three kernels, launched in stream order:
 //   route_columns_kernel — one thread per candidate of a lane block, in the
 //     kind-major layout (rep, vote, hb, tn: P per lane; resp: K; rir: R).
 //     It writes the candidate's column of the (C, M) i32 slab, C = 11 + 2E
 //     (dest, the ten scalar Inbox fields, E entry terms read off the
 //     sender's ring, E entry cc flags), and zeroes the candidate's RoutePlan
 //     bit. The slab is the exchange format of the sharded path; the
-//     unsharded router reads it as a gather of one shard.
-//   route_scatter_kernel — the first K arrivals per destination lane, in
-//     global candidate order, deterministically: each block owns a range of
-//     destination lanes, scans the dest row of the gathered (n, C, M) slab,
-//     and inserts every candidate addressed to its range into a K-deep
-//     sorted list per lane in shared memory by cascading atomicMin of the
-//     global candidate index (each slot keeps the minimum of what reaches
-//     it and passes the larger value on, so slot j ends with the (j+1)-th
-//     smallest index whatever the arrival order). Then one thread per
-//     (lane, slot) writes the scalar Inbox fields from the chosen
-//     candidate's column (MSG.NONE and zeros for an empty slot) and sets
-//     the chosen candidate's RoutePlan bit, and one thread per (lane, slot,
-//     entry) copies the entry planes. A shard writes only its own inbox rows and
-//     its own candidates' plan bits; every shard replays the scatter for
-//     all lanes, as the reference does, so all agree on arrival order.
-//     Global candidate index <-> (kind, source shard, local offset) is
-//     arithmetic; the spliced global layout is never materialised.
+//     unsharded router reads it as a gather of one shard. Entry rows past a
+//     candidate's n_entries are zero, as in the reference (e_live).
+//   route_index_kernel — the first pass of the scatter: one thread per
+//     gathered candidate position reads its dest word once (coalesced) and,
+//     if the dest is a lane, inserts the candidate's global index into that
+//     lane's K-deep list in a (G, K) i32 scratch in global memory, by
+//     cascading atomicMin: each slot keeps the minimum of what reaches it
+//     and passes the larger value on, so slot j ends with the (j+1)-th
+//     smallest index whatever the arrival order, which is the reference's
+//     stable-sort order. A free slot holds RT_EMPTY.
+//   route_scatter_kernel — the second pass: RT_SLOT_THREADS threads per
+//     (lane, slot) read the slot's candidate, set its RoutePlan bit if it is
+//     this shard's, write the ten scalar Inbox fields of the slot if the
+//     lane is this shard's (MSG.NONE and zeros for an empty slot), copy the
+//     first clip(n_entries, 0, E) entry terms and cc flags and write zeros
+//     past them without reading them, and put RT_EMPTY back in the slot, so
+//     the scratch is ready for the next insert with no launch to clear it.
+//   Every shard replays the insert over every shard's candidates, as the
+//   reference does, so all agree on arrival order; a shard writes only its
+//   own inbox rows and its own candidates' plan bits. Global candidate
+//   index <-> (kind, source shard, local offset) is arithmetic; the spliced
+//   global layout is never materialised.
 //
 // Bound: bytes. The columns kernel writes the whole slab (dominated by the
-// 2E entry rows, most of them zero), and the scatter reads the dest row of
-// every shard's slab once per block plus the columns of the accepted
-// candidates, and writes the inbox. Accesses are coalesced along the
-// candidate axis (a warp writes 32 neighbouring columns of one slab row).
-// The scatter is latency-bound, not byte-bound: a block owns only 64 lanes
-// so the scan spreads over many SMs, each thread keeps 4 dest loads in
-// flight, and the strided entry reads are spread over all threads. The
-// scan of the dest row by every block is redundant work that a later
-// version can cut with a per-lane candidate index.
+// 2E entry rows, most of them zero). The scatter must read the dest row of
+// every shard's slab once plus the columns of the accepted candidates, and
+// write the inbox: 0.00207 ms at config 6's shape (3072 lanes, 73,728
+// candidates, ~4,096 accepted). The insert pass reads the dest row once,
+// coalesced, and issues one to K atomics per addressed candidate; the write
+// pass reads 10 + 2 * n_entries words of each accepted column (one sector
+// each: a column runs down the slab) and writes the inbox in runs, four
+// entry terms and eight cc flags to a store where E is a multiple of 8.
+//
+// What the scatter cost before (one block of 1024 threads per 64
+// destination lanes, every block scanning every dest word of every shard,
+// 48 scans of 295 KB at G = 3072, and every entry row of each accepted
+// column read): 0.0524 ms per call at config 6's shape, unsharded, on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md section 6); 44-50%
+// of a super-step's device time. The two passes: 0.0093 ms per call (insert
+// 0.0027, write 0.0065), same card and limit (compare_kernels.py).
 //
 // JAX semantics kept by hand: i32 adds wrap (done in uint32_t and cast
 // back), floor modulo for ring slots, an arithmetic shift of the i32
@@ -51,6 +63,7 @@
 
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -115,9 +128,10 @@ struct RouteColumnsParams {
   int32_t G, P, K, R, E, W, M;  // G: lanes of this block, M = G*(4P+K+R)
 };
 
-// Everything route_scatter_kernel reads and writes for one shard.
+// Everything the two scatter passes read and write for one shard.
 struct RouteScatterParams {
   const int32_t* gathered;  // [n, C, M]: every shard's slab, shard-major
+  int32_t* slots;           // [n * Gl, K]: per-lane candidate lists (scratch)
   // this shard's next Inbox (Gl rows)
   int32_t* mtype;
   int32_t* from_slot;
@@ -316,23 +330,16 @@ RT_DEV int rt_atomic_min(int* p, int v) {
 #define RT_ATOMIC_MIN(p, v) rt_atomic_min((p), (v))
 #endif
 
-// The dest word of gathered position i (shard i / M, local offset i % M).
-RT_DEV int dest_at(const RouteScatterParams& S, int i) {
-  const int C = 11 + 2 * S.E;
+// Insert pass, for gathered position i (shard i / M, local offset i % M):
+// if its dest word names a lane, insert its global index into that lane's
+// K-deep list.
+RT_DEV void scatter_insert(const RouteScatterParams& S, int i) {
+  const int G = S.n * S.Gl, K = S.K, C = 11 + 2 * S.E;
   const int s = i / S.M, o = i - s * S.M;
-  return S.gathered[(size_t)s * C * S.M + o];
-}
-
-// Phase 1 of the scatter for gathered position i with dest word d: if d
-// lies in [d0, d0 + D), insert i's global index into that lane's K-deep
-// list.
-RT_DEV void scatter_insert(const RouteScatterParams& S, int* slots, int d0, int D,
-                           int i, int d) {
-  const int G = S.n * S.Gl, K = S.K;
-  if (d < d0 || d >= d0 + D || d >= G) return;  // also drops d < 0
-  const int s = i / S.M;
-  int c = global_index(S, s, i - s * S.M);
-  int* lane = slots + (size_t)(d - d0) * K;
+  const int d = S.gathered[(size_t)s * C * S.M + o];
+  if (d < 0 || d >= G) return;
+  int c = global_index(S, s, o);
+  int* lane = S.slots + (size_t)d * K;
   for (int j = 0; j < K; ++j) {
     const int old = RT_ATOMIC_MIN(lane + j, c);
     if (old == RT_EMPTY) return;  // c took an empty slot
@@ -340,68 +347,92 @@ RT_DEV void scatter_insert(const RouteScatterParams& S, int* slots, int d0, int 
   }
 }
 
-#define RT_NOT_MINE (-2)
-#define RT_NO_CANDIDATE (-1)
+// 16 bytes (4 words) and 8 bytes at an address aligned to them
+RT_DEV void rt_store16(int32_t* p, const int32_t* v) {
+#ifdef __CUDA_ARCH__
+  *(int4*)p = make_int4(v[0], v[1], v[2], v[3]);
+#else
+  memcpy(p, v, 16);
+#endif
+}
+RT_DEV void rt_store8(uint8_t* p, uint64_t v) {
+#ifdef __CUDA_ARCH__
+  *(uint64_t*)p = v;
+#else
+  memcpy(p, &v, 8);
+#endif
+}
 
-// Phase 2 of the scatter for (lane d0 + q / K, slot q % K): set the chosen
-// candidate's plan bit if it is this shard's, and write the scalar fields
-// of the slot if the lane is this shard's. Returns where the chosen
-// candidate's column starts in `gathered` (RT_NO_CANDIDATE for an empty
-// slot, RT_NOT_MINE for another shard's lane) for the entry copy.
-RT_DEV long long scatter_write(const RouteScatterParams& S, const int* slots, int d0, int q) {
+// Field r (Inbox order, 0..9) of inbox row `row`.
+RT_DEV void put_field(const RouteScatterParams& S, int r, size_t row, int32_t v) {
+  switch (r) {
+    case 0: S.mtype[row] = v; break;
+    case 1: S.from_slot[row] = v; break;
+    case 2: S.term[row] = v; break;
+    case 3: S.log_index[row] = v; break;
+    case 4: S.log_term[row] = v; break;
+    case 5: S.commit[row] = v; break;
+    case 6: S.reject[row] = v != 0; break;
+    case 7: S.hint[row] = v; break;
+    case 8: S.hint_high[row] = v; break;
+    default: S.n_entries[row] = v; break;
+  }
+}
+
+// Write pass, thread t of the ts threads of (lane q / K, slot q % K), whose
+// list holds candidate c (RT_EMPTY for none): thread 0 sets the plan bit of
+// a candidate of this shard; on this shard's lanes, thread t writes scalar
+// fields t, t + ts, ... and entries t, t + ts, ... of the slot.
+RT_DEV void scatter_write(const RouteScatterParams& S, int c, int q, int t, int ts) {
   const int K = S.K, E = S.E, C = 11 + 2 * E, Gl = S.Gl, G = S.n * Gl;
-  const int d = d0 + q / K, j = q % K;
-  if (d >= G) return RT_NOT_MINE;
-  const int c = slots[q];
-  long long at = RT_NO_CANDIDATE;
+  const int d = q / K, j = q - d * K;
+  const size_t M = (size_t)S.M;
+  const int32_t* col = nullptr;
   if (c != RT_EMPTY) {
     int g, slot;
     const int k = split_index(c, G, S.P, S.K, S.R, &g, &slot);
     const int s = g / Gl, gl = g - s * Gl;
-    const int seg = seg_of(k, S.P, S.K, S.R);
-    at = (long long)s * C * S.M + kind_base(k, Gl, S.P, S.K, S.R) + gl * seg + slot;
-    if (s == S.my)
+    const int at = gl * seg_of(k, S.P, S.K, S.R) + slot;
+    col = S.gathered + (size_t)s * C * M + kind_base(k, Gl, S.P, S.K, S.R) + at;
+    if (t == 0 && s == S.my)
       plan_plane(S.plan_rep, S.plan_vote, S.plan_hb, S.plan_tn, S.plan_resp,
-                 S.plan_rir, k)[gl * seg + slot] = 1;
+                 S.plan_rir, k)[at] = 1;
   }
-  if (d / Gl != S.my) return RT_NOT_MINE;
-  const size_t M = (size_t)S.M;
+  if (d / Gl != S.my) return;
   const size_t row = (size_t)(d - S.my * Gl) * K + j;
-  const int32_t* col = at >= 0 ? S.gathered + at : nullptr;
-  int v[10] = {RT_NONE, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  if (col)
-    for (int r = 0; r < 10; ++r) v[r] = col[(size_t)(1 + r) * M];
-  S.mtype[row] = v[0];
-  S.from_slot[row] = v[1];
-  S.term[row] = v[2];
-  S.log_index[row] = v[3];
-  S.log_term[row] = v[4];
-  S.commit[row] = v[5];
-  S.reject[row] = v[6] != 0;
-  S.hint[row] = v[7];
-  S.hint_high[row] = v[8];
-  S.n_entries[row] = v[9];
-  return at;
+  for (int r = t; r < 10; r += ts)
+    put_field(S, r, row, col ? col[(1 + r) * M] : (r == 0 ? RT_NONE : 0));
+  // entries past n_entries are zero in the slab: write them unread. Four
+  // terms and eight cc flags to a store where the slot's rows are aligned
+  // to them (E a multiple of 8), else one to a store.
+  const int live = col ? rt_clip(col[10 * M], 0, E) : 0;
+  int32_t* terms = S.entry_terms + row * E;
+  uint8_t* cc = S.entry_cc + row * E;
+  if ((E & 7) == 0 && (((uintptr_t)terms | (uintptr_t)cc) & 15) == 0) {
+    for (int e = 4 * t; e < E; e += 4 * ts) {
+      int32_t v[4];
+      for (int k = 0; k < 4; ++k) v[k] = e + k < live ? col[(11 + e + k) * M] : 0;
+      rt_store16(terms + e, v);
+    }
+    for (int e = 8 * t; e < E; e += 8 * ts) {
+      uint64_t v = 0;
+      for (int k = 0; k < 8; ++k)
+        if (e + k < live && col[(11 + E + e + k) * M] != 0) v |= (uint64_t)1 << (8 * k);
+      rt_store8(cc + e, v);
+    }
+    return;
+  }
+  for (int e = t; e < E; e += ts) {
+    const bool on = e < live;
+    terms[e] = on ? col[(11 + e) * M] : 0;
+    cc[e] = on ? col[(11 + E + e) * M] != 0 : 0;
+  }
 }
 
-// Phase 3 for entry x = q * E + e of the block's slots: copy entry e of the
-// chosen candidate (zeros for an empty slot) into this shard's inbox.
-RT_DEV void scatter_entry(const RouteScatterParams& S, const long long* cols, int d0, int x) {
-  const int E = S.E, K = S.K;
-  const int q = x / E, e = x - q * E;
-  const long long at = cols[q];
-  if (at == RT_NOT_MINE) return;
-  const size_t row = (size_t)(d0 + q / K - S.my * S.Gl) * K + q % K;
-  const int32_t* col = at >= 0 ? S.gathered + at : nullptr;
-  S.entry_terms[row * E + e] = col ? col[(size_t)(11 + e) * S.M] : 0;
-  S.entry_cc[row * E + e] = col ? col[(size_t)(11 + E + e) * S.M] != 0 : 0;
-}
-
-// destination lanes per scatter block: small ranges spread the scatter
-// over many SMs; every block scans all dest words, RT_SCAN_UNROLL loads in
-// flight per thread
-#define RT_LANES_PER_BLOCK 64
-#define RT_SCAN_UNROLL 4
+// Threads per (lane, slot) in the write pass: a warp covers 4 slots; a
+// group writes a slot's 10 fields, then its entry rows 128 bytes of terms
+// and 64 bytes of cc flags at a time.
+#define RT_SLOT_THREADS 8
 
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(256) route_columns_kernel(const RouteColumnsParams S) {
@@ -409,29 +440,20 @@ __global__ void __launch_bounds__(256) route_columns_kernel(const RouteColumnsPa
   if (c < S.M) route_candidate(S, c);
 }
 
-__global__ void __launch_bounds__(1024) route_scatter_kernel(const RouteScatterParams S) {
-  extern __shared__ long long smem[];
-  const int D = RT_LANES_PER_BLOCK, T = blockDim.x, DK = D * S.K;
-  long long* cols = smem;              // D*K column offsets
-  int* slots = (int*)(smem + DK);      // D*K candidate lists
-  const int d0 = blockIdx.x * D;
-  for (int q = threadIdx.x; q < DK; q += T) slots[q] = RT_EMPTY;
-  __syncthreads();
-  const int total = S.n * S.M;
-  for (int i0 = threadIdx.x; i0 < total; i0 += RT_SCAN_UNROLL * T) {
-    int d[RT_SCAN_UNROLL];
-#pragma unroll
-    for (int u = 0; u < RT_SCAN_UNROLL; ++u) {
-      const int i = i0 + u * T;
-      d[u] = i < total ? dest_at(S, i) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < RT_SCAN_UNROLL; ++u) scatter_insert(S, slots, d0, D, i0 + u * T, d[u]);
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < DK; q += T) cols[q] = scatter_write(S, slots, d0, q);
-  __syncthreads();
-  for (int x = threadIdx.x; x < DK * S.E; x += T) scatter_entry(S, cols, d0, x);
+__global__ void __launch_bounds__(256) route_index_kernel(const RouteScatterParams S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < S.n * S.M) scatter_insert(S, i);
+}
+
+__global__ void __launch_bounds__(256) route_scatter_kernel(const RouteScatterParams S) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = x / RT_SLOT_THREADS, t = x - q * RT_SLOT_THREADS;
+  const int total = S.n * S.Gl * S.K;
+  const int c = q < total ? S.slots[q] : RT_EMPTY;
+  __syncwarp();  // the slot's threads share a warp: all have read it
+  if (q >= total) return;
+  if (t == 0) S.slots[q] = RT_EMPTY;
+  scatter_write(S, c, q, t, RT_SLOT_THREADS);
 }
 
 extern "C" int route_columns_launch(const RouteColumnsParams* p, void* stream) {
@@ -442,12 +464,18 @@ extern "C" int route_columns_launch(const RouteColumnsParams* p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+extern "C" int route_index_launch(const RouteScatterParams* p, void* stream) {
+  const int total = p->n * p->M;
+  if (total <= 0) return 0;
+  route_index_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int route_scatter_launch(const RouteScatterParams* p, void* stream) {
-  const int G = p->n * p->Gl;
-  if (G <= 0) return 0;
-  const int blocks = (G + RT_LANES_PER_BLOCK - 1) / RT_LANES_PER_BLOCK;
-  const size_t shm = (size_t)RT_LANES_PER_BLOCK * p->K * (sizeof(long long) + sizeof(int));
-  route_scatter_kernel<<<blocks, 1024, shm, (cudaStream_t)stream>>>(*p);
+  const long long threads = (long long)p->n * p->Gl * p->K * RT_SLOT_THREADS;
+  if (threads <= 0) return 0;
+  route_scatter_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
+                         (cudaStream_t)stream>>>(*p);
   return (int)cudaGetLastError();
 }
 

@@ -5,17 +5,18 @@ one voting replica per group, so every proposal commits at once, and every
 inbox slot of every group carries a full E-entry PROPOSE. Quorum, transport
 and fsync are excluded by design; this measures the step kernel alone.
 
-Times come from CUDA events around each step after a warm-up. The module
-also carries the byte count of one step (for its bound on the card) and a
-seeded random inbox generator used to hold the kernel against its plain
-version.
+Times come from CUDA events around each step after a warm-up, or, for a
+kernel's own time, from its durations in a profiler trace (`device_ms`).
+The module also carries the byte count of one step (for its bound on the
+card) and a seeded random inbox generator used to hold the kernel against
+its plain version.
 
 It also builds the config-6 super-step cluster (`superstep_cluster`,
 `host_window`, `compact`): config 2's 1024 groups x 3 replicas co-hosted in
 one state of 3072 lanes, driven K=8 inner steps per super-step, with the
 byte counts of the router and gather kernels (`route_columns_bytes`,
-`route_scatter_bytes`, `ring_gather_bytes`) and a seeded random router case
-(`random_route_case`).
+`route_index_bytes`, `route_scatter_bytes`, `ring_gather_bytes`) and a
+seeded random router case (`random_route_case`).
 """
 from __future__ import annotations
 
@@ -46,6 +47,36 @@ from .ops.state import (
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
+
+
+def device_ms(fn, setup, reps: int, names=None) -> Dict[str, float]:
+    """Mean device time in ms of one launch of each named kernel, over reps
+    calls of fn() (each after setup()), from the kernels' durations in a
+    torch.profiler trace: a gap between launches on the host does not count,
+    as it does in a CUDA-event interval around a short launch. 0.0 for a
+    kernel that did not run. With names=None: {"total": the device time of
+    every kernel fn() launched, per call} (setup()'s own kernels included,
+    so pass a setup that launches none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            setup()
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0)
+             or getattr(e, "self_cuda_time_total", 0)) for e in prof.key_averages()]
+    if names is None:
+        return {"total": sum(t for _, _, t in rows) / 1e3 / reps}
+    got = {n: 0.0 for n in names}
+    for key, count, t in rows:
+        for n in names:
+            if key == n or key.startswith(n + "("):
+                got[n] = t / 1e3 / count
+    return got
 
 
 def kernel_step(state: RaftTensors, inbox, ticks, cfg: KernelConfig):
@@ -372,15 +403,33 @@ def route_columns_bytes(out, route, cfg: KernelConfig) -> int:
     return read + 5 * ents + 4 * slab_rows(cfg) * M + M
 
 
-def route_scatter_bytes(n: int, Ml: int, accepted: int, nxt: Inbox, cfg: KernelConfig) -> int:
-    """The least bytes one shard's scatter moves on this data: the dest row
-    of every shard's slab read once, the other C - 1 rows of each accepted
-    candidate read once, this shard's inbox written once and one plan byte
-    per accepted candidate."""
+def route_scatter_bytes(n: int, Ml: int, accepted: int, nxt: Inbox, cfg: KernelConfig,
+                        plan_bits: int = None) -> int:
+    """The least bytes one shard's scatter (both passes) moves on this
+    data: the dest row of every shard's slab read once, the other C - 1
+    rows of each candidate accepted into this shard's lanes read once,
+    this shard's inbox written once and one plan byte per accepted
+    candidate of this shard (`plan_bits`, `accepted` when None)."""
     from .ops.cuda import slab_rows
 
     inbox_b = sum(t.numel() * t.element_size() for t in nxt)
-    return 4 * n * Ml + 4 * (slab_rows(cfg) - 1) * accepted + inbox_b + accepted
+    bits = accepted if plan_bits is None else plan_bits
+    return route_index_bytes(n, Ml) + 4 * (slab_rows(cfg) - 1) * accepted + inbox_b + bits
+
+
+def route_index_bytes(n: int, Ml: int) -> int:
+    """The part of the scatter's bytes that its insert pass moves: the dest
+    row of every shard's slab, read once."""
+    return 4 * n * Ml
+
+
+def rebase_bytes(state: RaftTensors) -> int:
+    """ops.state.rebase: delta and the six index scalars, match, next,
+    snap_sent and ri_index read once, the ten planes written once."""
+    planes = ("first_index", "last_index", "committed", "processed", "applied",
+              "unsaved_from", "match", "next", "snap_sent", "ri_index")
+    nb = sum(getattr(state, f).numel() * getattr(state, f).element_size() for f in planes)
+    return 4 * state.term.shape[0] + 2 * nb
 
 
 def ring_gather_bytes(n: int, slab_elems: int) -> int:

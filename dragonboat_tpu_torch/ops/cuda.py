@@ -15,10 +15,14 @@ launches on PyTorch's current stream and counts the launch in LAUNCHES):
   comes from the tensors, as in the reference, so a lane block of a larger
   fleet runs with the fleet's cfg.
 - `route_step_output_cuda`: `csrc/route.cu`, the router between inner
-  steps (a columns kernel and a scatter kernel).
+  steps: the columns kernel, then the scatter's two passes (the insert
+  pass builds a K-deep candidate list per destination lane in a (G, K)
+  scratch, the write pass writes the inbox and the plan from it and clears
+  the scratch for its next use).
 - `ring_gather_cuda`: `csrc/ring_gather.cu`, the candidate exchange between
   the lane blocks of a sharded super-step.
-- `shard_route_cuda`: columns per shard, one gather, scatter per shard.
+- `shard_route_cuda`: columns per shard, one gather, both scatter passes
+  per shard.
 
 `multi_step_cuda` and `sharded_multi_step_cuda` drive a whole super-step:
 stacked outputs allocated once per call, step t's kernels writing slice t,
@@ -31,6 +35,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,10 +61,15 @@ NVCC_FLAGS = (
 #: launches per kernel; a wrapper adds one where it launches its kernel and
 #: nowhere else
 LAUNCHES: Dict[str, int] = {
-    "step_batch": 0, "route_columns": 0, "route_scatter": 0, "ring_gather": 0,
+    "step_batch": 0, "route_columns": 0, "route_index": 0, "route_scatter": 0,
+    "ring_gather": 0,
 }
 
-#: per source built in this process: what ptxas reported
+#: a free slot of the scatter's per-lane candidate lists (csrc/route.cu)
+ROUTE_EMPTY = 2**31 - 1
+
+#: per source: what ptxas reported when its library was built (kept beside
+#: the library, so a library built by an earlier process reports too)
 PTXAS: Dict[str, str] = {}
 
 _SOURCES = ("step_batch.cu", "route.cu", "ring_gather.cu")
@@ -87,7 +97,7 @@ def build_kernels() -> Dict[str, str]:
     targets = {src: _target(src) for src in _SOURCES}
     procs = {}
     for src, tgt in targets.items():
-        if not os.path.exists(tgt):
+        if not (os.path.exists(tgt) and os.path.exists(tgt + ".ptxas")):
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tgt, os.path.join(CSRC, src)]
             procs[src] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True)
@@ -97,10 +107,51 @@ def build_kernels() -> Dict[str, str]:
         if p.returncode != 0:
             failed.append(f"nvcc failed on {src} (exit {p.returncode}):\n{report}")
         else:
-            PTXAS[src] = report.strip()
+            with open(targets[src] + ".ptxas", "w") as f:
+                f.write(report.strip())
     if failed:
         raise RuntimeError("\n".join(failed))
+    for src, tgt in targets.items():
+        with open(tgt + ".ptxas") as f:
+            PTXAS[src] = f.read()
     return targets
+
+
+_KERNELS = ("step_batch_kernel", "route_columns_kernel", "route_index_kernel",
+            "route_scatter_kernel", "ring_gather_kernel")
+
+
+def kernel_resources() -> Dict[str, Dict[str, int]]:
+    """What ptxas reported for each kernel built in this process: kernel
+    name -> registers, stack frame bytes, spill store and load bytes and
+    static shared memory bytes (dynamic shared memory is set at launch)."""
+    res: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for report in PTXAS.values():
+        for line in report.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                cur = next((k for k in _KERNELS if k in line), None)
+                continue
+            if cur is None:
+                continue
+            r = res.setdefault(cur, {"registers": 0, "stack_frame": 0, "spill_stores": 0,
+                                     "spill_loads": 0, "smem": 0})
+            for key, pat in (("stack_frame", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    r[key] = int(m.group(1))
+    return res
+
+
+def step_frame_bytes(P: int, K: int, R: int) -> int:
+    """Dynamic shared memory of one step_batch block at (P, K, R)."""
+    lib = _lib("step_batch.cu")
+    lib.step_batch_frame_bytes.restype = ctypes.c_longlong
+    return lib.step_batch_frame_bytes(P, K, R, lib.step_batch_block_lanes())
 
 
 # ------------------------------------------------------- parameter structs
@@ -150,7 +201,7 @@ class RouteScatterParams(ctypes.Structure):
     """Mirror of `struct RouteScatterParams` in csrc/route.cu."""
 
     _fields_ = (
-        [("gathered", ctypes.c_void_p)]
+        [("gathered", ctypes.c_void_p), ("slots", ctypes.c_void_p)]
         + [(f, ctypes.c_void_p) for f in Inbox._fields]
         + [(f, ctypes.c_void_p) for f in _PLAN]
         + [(n, ctypes.c_int32) for n in ("n", "Gl", "P", "K", "R", "E", "M", "my")]
@@ -173,6 +224,7 @@ _ENTRIES = {
     "step_batch.cu": (("step_batch_launch", StepParams, "step_batch_params_size"),),
     "route.cu": (
         ("route_columns_launch", RouteColumnsParams, "route_columns_params_size"),
+        ("route_index_launch", RouteScatterParams, "route_scatter_params_size"),
         ("route_scatter_launch", RouteScatterParams, "route_scatter_params_size"),
     ),
     "ring_gather.cu": (("ring_gather_launch", RingGatherParams, "ring_gather_params_size"),),
@@ -208,6 +260,11 @@ class _Launcher:
         if err != 0:
             raise RuntimeError(f"{fn} failed: cudaError {err}")
         LAUNCHES[counter] += 1
+
+    def scatter(self, params) -> None:
+        """The scatter's two passes, in stream order."""
+        self("route_index_launch", params, "route_index")
+        self("route_scatter_launch", params, "route_scatter")
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> torch.device:
@@ -392,6 +449,13 @@ def _alloc_inbox(G, K, E, device) -> Inbox:
     return Inbox(*(torch.empty(s, dtype=dt, device=device) for s, dt in shapes))
 
 
+def alloc_slots(G: int, K: int, device) -> torch.Tensor:
+    """The scatter's (G, K) per-lane candidate lists, every slot free; the
+    write pass leaves them free again, so one scratch serves every call
+    of a super-step."""
+    return torch.full((G, K), ROUTE_EMPTY, dtype=torch.int32, device=device)
+
+
 def _alloc_plan(G, P, K, R, device, steps=None) -> RoutePlan:
     lead = () if steps is None else (steps,)
     shapes = [(G, P)] * 4 + [(G, K), (G, R)]
@@ -427,10 +491,11 @@ def _columns_params(s: RaftTensors, out: StepOutput, route, rdelta, slab,
     return p
 
 
-def _scatter_params(gathered, n: int, my: int, Gl: int, P: int, nxt: Inbox,
+def _scatter_params(gathered, slots, n: int, my: int, Gl: int, P: int, nxt: Inbox,
                     plan: RoutePlan, cfg: KernelConfig) -> RouteScatterParams:
-    """Check one shard's scatter outputs and fill the scatter kernel's
-    struct (`gathered` is the (n, C, Ml) stack; for n = 1 a (C, M) slab)."""
+    """Check one shard's scatter inputs and outputs and fill the struct of
+    the scatter's two passes (`gathered` is the (n, C, Ml) stack, for n = 1
+    a (C, M) slab; `slots` the (n * Gl, K) scratch of alloc_slots)."""
     what = "route_scatter"
     K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
     dev = gathered.device
@@ -439,6 +504,7 @@ def _scatter_params(gathered, n: int, my: int, Gl: int, P: int, nxt: Inbox,
     p = RouteScatterParams()
     p.gathered = _check(what, "gathered", gathered.reshape(n, C, Ml) if gathered.dim() == 2
                         else gathered, (n, C, Ml), torch.int32, dev)
+    p.slots = _check(what, "slots", slots, (n * Gl, K), torch.int32, dev)
     ref = _alloc_inbox(1, K, E, "cpu")
     for f, t, r in zip(Inbox._fields, nxt, ref):
         setattr(p, f, _check(what, "next." + f, t, (Gl,) + tuple(r.shape[1:]), r.dtype, dev))
@@ -453,9 +519,9 @@ def route_step_output_cuda(
     nxt: Optional[Inbox] = None, plan: Optional[RoutePlan] = None,
 ) -> Tuple[Inbox, RoutePlan]:
     """The router on the card (csrc/route.cu): the columns kernel writes
-    the candidate slab, the scatter kernel reads it as a gather of one
-    shard and writes the next Inbox and the RoutePlan (allocated when
-    None)."""
+    the candidate slab; the scatter's insert and write passes read it as a
+    gather of one shard and write the next Inbox and the RoutePlan
+    (allocated when None)."""
     dev = _on_cuda(s.term, "route_step_output")
     G, P = s.member.shape
     K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
@@ -464,10 +530,10 @@ def route_step_output_cuda(
     slab = torch.empty((slab_rows(cfg), G * candidates_per_lane(cfg)), dtype=torch.int32,
                        device=dev)
     cols = _columns_params(s, out, route, rdelta, slab, plan, cfg)
-    scat = _scatter_params(slab, 1, 0, G, P, nxt, plan, cfg)
+    scat = _scatter_params(slab, alloc_slots(G, K, dev), 1, 0, G, P, nxt, plan, cfg)
     launch = _Launcher(dev)
     launch("route_columns_launch", cols, "route_columns")
-    launch("route_scatter_launch", scat, "route_scatter")
+    launch.scatter(scat)
     return nxt, plan
 
 
@@ -505,8 +571,9 @@ def ring_gather_cuda(slabs: Sequence[torch.Tensor],
 
 def shard_route_cuda(states, outs, routes, rdeltas, cfg: KernelConfig):
     """The cross-shard router on the card: the columns kernel per shard,
-    one gather launch, the scatter kernel per shard (each writing its own
-    inbox rows and its own candidates' plan bits)."""
+    one gather launch, the scatter's two passes per shard (each replaying
+    the insert over every shard's candidates, and writing its own inbox
+    rows and its own candidates' plan bits)."""
     n = len(states)
     dev = _on_cuda(states[0].term, "shard_route")
     Gl, P = states[0].member.shape
@@ -518,13 +585,14 @@ def shard_route_cuda(states, outs, routes, rdeltas, cfg: KernelConfig):
     plans = [_alloc_plan(Gl, P, K, R, dev) for _ in range(n)]
     cols = [_columns_params(*a, cfg) for a in zip(states, outs, routes, rdeltas, slabs, plans)]
     gp = _gather_params(slabs, gathered)
-    scat = [_scatter_params(gathered[i], n, i, Gl, P, nxts[i], plans[i], cfg) for i in range(n)]
+    scat = [_scatter_params(gathered[i], alloc_slots(n * Gl, K, dev), n, i, Gl, P, nxts[i],
+                            plans[i], cfg) for i in range(n)]
     launch = _Launcher(dev)
     for p in cols:
         launch("route_columns_launch", p, "route_columns")
     launch("ring_gather_launch", gp, "ring_gather")
     for p in scat:
-        launch("route_scatter_launch", p, "route_scatter")
+        launch.scatter(p)
     return nxts, plans
 
 
@@ -553,6 +621,7 @@ class _Block:
         self.plans = _alloc_plan(G, P, K, R, dev, steps)
         self.slab = torch.empty((slab_rows(cfg), G * candidates_per_lane(cfg)),
                                 dtype=torch.int32, device=dev)
+        self.slots = alloc_slots(n * G, K, dev)
         zeros = torch.zeros_like(ticks)
         at = lambda tree, t: type(tree)(*(x[t] for x in tree))
         # full checks once, on step 0's tensors; later steps differ only in
@@ -562,7 +631,7 @@ class _Block:
                                 at(self.plans, 0), cfg)
         g = self.slab if gathered is None else gathered
         # the caller's residual is written in place by the last inner step
-        scat0 = _scatter_params(g, n, my, G, P, resid, at(self.plans, 0), cfg)
+        scat0 = _scatter_params(g, self.slots, n, my, G, P, resid, at(self.plans, 0), cfg)
         # per step only addresses change: slice t of a stacked plane lies t
         # steps' bytes after slice 0, and the inbox buffers take turns
         rows = lambda tree: [(x.data_ptr(), x.stride(0) * x.element_size()) for x in tree]
@@ -602,15 +671,16 @@ class _Block:
 
 def multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg: KernelConfig, steps: int):
     """The super-step on the card: per inner step one step_batch launch,
-    one route_columns launch and one route_scatter launch (the scatter
-    reads the slab as a gather of one shard; no gather is launched)."""
+    one route_columns launch and the scatter's two launches (route_index,
+    route_scatter; the scatter reads the slab as a gather of one shard; no
+    gather is launched)."""
     dev = _on_cuda(s.term, "multi_step")
     blk = _Block(s, inbox, ticks, resid, route, rdelta, cfg, steps, 1, 0, None)
     launch = _Launcher(dev)
     for t in range(steps):
         launch("step_batch_launch", blk.step_p[t], "step_batch")
         launch("route_columns_launch", blk.cols_p[t], "route_columns")
-        launch("route_scatter_launch", blk.scat_p[t], "route_scatter")
+        launch.scatter(blk.scat_p[t])
     return blk.result()
 
 
@@ -618,7 +688,7 @@ def sharded_multi_step_cuda(states, inboxes, ticks, resids, routes, rdeltas,
                             cfg: KernelConfig, steps: int):
     """The sharded super-step on one card: per inner step n step_batch
     launches, n route_columns launches, one ring_gather launch covering all
-    n destinations, and n route_scatter launches."""
+    n destinations, and the scatter's two launches per shard."""
     n = len(states)
     dev = _on_cuda(states[0].term, "sharded_multi_step")
     Gl = states[0].member.shape[0]
@@ -635,6 +705,6 @@ def sharded_multi_step_cuda(states, inboxes, ticks, resids, routes, rdeltas,
             launch("route_columns_launch", b.cols_p[t], "route_columns")
         launch("ring_gather_launch", gp, "ring_gather")
         for b in blks:
-            launch("route_scatter_launch", b.scat_p[t], "route_scatter")
+            launch.scatter(b.scat_p[t])
     res = [b.result() for b in blks]
     return tuple(tuple(r[k] for r in res) for k in range(5))

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no file of `dragonboat_tpu_torch/`, and not
-`chip_smoke.py`, imports jax or the JAX package `dragonboat_tpu`."""
+"""The PyTorch port stands alone: no file of `dragonboat_tpu_torch/`, and
+neither `chip_smoke.py` nor `compare_kernels.py`, imports jax or the JAX
+package `dragonboat_tpu`."""
 import ast
 import os
 
@@ -10,7 +11,7 @@ FORBIDDEN = ("jax", "jaxlib", "dragonboat_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_kernels.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "dragonboat_tpu_torch")):
         files += [os.path.join(d, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)
@@ -38,7 +39,7 @@ def test_port_file_imports_no_jax(path):
 
 def test_scan_sees_the_port():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
-    assert "chip_smoke.py" in files
+    assert "chip_smoke.py" in files and "compare_kernels.py" in files
     assert os.path.join("dragonboat_tpu_torch", "ops", "kernel.py") in files
     assert os.path.join("dragonboat_tpu_torch", "ops", "loopback.py") in files
 

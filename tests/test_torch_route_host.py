@@ -2,13 +2,16 @@
 against the port's plain router, exact on every field.
 
 `csrc/route.cu` compiles as plain C++ too (its `RT_DEV` functions are
-`static inline` without nvcc, and the shared-memory atomicMin becomes a
-plain compare), so g++ builds a small library whose host loops run the
-columns code for every candidate and the scatter code block by block, with
-the same parameter structs `ops/cuda.py` fills for the card. The scatter's
-insertion runs over the candidates in reverse order, which shows that the
-cascading atomicMin lists do not depend on arrival order. The launch
-itself, and the same comparison on the card, are in `chip_smoke.py`.
+`static inline` without nvcc, and the atomicMin becomes a plain compare),
+so g++ builds a small library whose host loops run the columns code for
+every candidate, the scatter's insert pass for every gathered candidate
+position and its write pass for every (lane, slot) and thread of the slot,
+with the same parameter structs `ops/cuda.py` fills for the card. The
+insert pass runs over the candidates in reverse order, or in a seeded
+shuffled order, which shows that the cascading atomicMin lists do not
+depend on arrival order; after the write pass the scratch is free again.
+The launch itself, and the same comparison on the card, are in
+`chip_smoke.py`.
 
 Draws: tests/test_multistep.py's seeded random (state, output) generator
 with seeded routes that cross shards; the unsharded router and the
@@ -40,19 +43,18 @@ extern "C" void route_columns_host(const RouteColumnsParams* p) {
   for (int c = 0; c < p->M; ++c) route_candidate(*p, c);
 }
 
-extern "C" void route_scatter_host(const RouteScatterParams* p) {
-  const int G = p->n * p->Gl, D = RT_LANES_PER_BLOCK, DK = D * p->K;
-  int* slots = (int*)malloc(sizeof(int) * DK);
-  long long* cols = (long long*)malloc(sizeof(long long) * DK);
-  for (int d0 = 0; d0 < G; d0 += D) {
-    for (int q = 0; q < DK; ++q) slots[q] = RT_EMPTY;
-    for (int i = p->n * p->M - 1; i >= 0; --i)
-      scatter_insert(*p, slots, d0, D, i, dest_at(*p, i));
-    for (int q = 0; q < DK; ++q) cols[q] = scatter_write(*p, slots, d0, q);
-    for (int x = 0; x < DK * p->E; ++x) scatter_entry(*p, cols, d0, x);
+// the insert pass over the gathered positions in the given order (reverse
+// order when `order` is null), then the write pass slot by slot, each slot
+// read once, freed, and written by its RT_SLOT_THREADS threads in turn
+extern "C" void route_scatter_host(const RouteScatterParams* p, const int* order) {
+  const int total = p->n * p->M;
+  for (int x = 0; x < total; ++x) scatter_insert(*p, order ? order[x] : total - 1 - x);
+  const int slots = p->n * p->Gl * p->K;
+  for (int q = 0; q < slots; ++q) {
+    const int c = p->slots[q];
+    p->slots[q] = RT_EMPTY;
+    for (int t = 0; t < RT_SLOT_THREADS; ++t) scatter_write(*p, c, q, t, RT_SLOT_THREADS);
   }
-  free(cols);
-  free(slots);
 }
 """
 
@@ -70,8 +72,9 @@ def host_lib(tmp_path_factory):
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", cuda.CSRC,
                     "-o", str(lib), str(src)], check=True, capture_output=True)
     so = ctypes.CDLL(str(lib))
+    so.route_columns_host.argtypes = [ctypes.c_void_p]
+    so.route_scatter_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     for fn in ("route_columns_host", "route_scatter_host"):
-        getattr(so, fn).argtypes = [ctypes.c_void_p]
         getattr(so, fn).restype = None
     assert so.route_columns_host_params_size() == ctypes.sizeof(cuda.RouteColumnsParams)
     assert so.route_scatter_host_params_size() == ctypes.sizeof(cuda.RouteScatterParams)
@@ -88,9 +91,11 @@ def _filled(tree):
     return tree
 
 
-def _host_route(so, states, outs, routes, rdeltas, cfg):
-    """The columns code per shard, the plain gather, the scatter code per
-    shard; returns (per-shard Inbox, per-shard RoutePlan, slabs)."""
+def _host_route(so, states, outs, routes, rdeltas, cfg, order_seed=None):
+    """The columns code per shard, the plain gather, the scatter's two
+    passes per shard (the insert in reverse order, or shuffled by
+    `order_seed`); returns (per-shard Inbox, per-shard RoutePlan, slabs)
+    and checks that each shard's scratch is free again afterwards."""
     n = len(states)
     Gl, P = states[0].member.shape
     K_, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
@@ -105,8 +110,14 @@ def _host_route(so, states, outs, routes, rdeltas, cfg):
         so.route_columns_host(ctypes.byref(p))
     gathered = K.ring_gather_reference(slabs)
     for i in range(n):
-        p = cuda._scatter_params(gathered[i], n, i, Gl, P, nxts[i], plans[i], cfg)
-        so.route_scatter_host(ctypes.byref(p))
+        slots = cuda.alloc_slots(n * Gl, K_, "cpu")
+        p = cuda._scatter_params(gathered[i], slots, n, i, Gl, P, nxts[i], plans[i], cfg)
+        order = None
+        if order_seed is not None:
+            perm = np.random.default_rng(order_seed + i).permutation(n * Ml)
+            order = torch.from_numpy(perm.astype(np.int32))
+        so.route_scatter_host(ctypes.byref(p), None if order is None else order.data_ptr())
+        assert bool((slots == cuda.ROUTE_EMPTY).all()), "the write pass left a slot taken"
     return nxts, plans, slabs
 
 
@@ -167,9 +178,9 @@ def test_router_overflow_keeps_the_first_k_arrivals(host_lib):
 
 @pytest.mark.parametrize("n", [1, 2, 5])
 def test_router_code_across_scatter_blocks(host_lib, n):
-    """A 160-lane draw from kernel_bench.random_route_case: several scatter
-    blocks of RT_LANES_PER_BLOCK lanes, shard blocks that straddle them,
-    routes to any lane, below-window rejects and out-of-range read origins."""
+    """A 160-lane draw from kernel_bench.random_route_case: shard blocks of
+    160 / n lanes, routes to any lane, below-window rejects and out-of-range
+    read origins."""
     from dragonboat_tpu_torch.kernel_bench import random_route_case
     from dragonboat_tpu_torch.ops.convert import state_from_numpy
 
@@ -186,3 +197,51 @@ def test_router_code_across_scatter_blocks(host_lib, n):
     # the draw fills some lanes past K and routes every kind
     assert all(int(p.sum()) > 0 for p in ref_plan)
     assert int((ref_nxt.mtype != T.MSG.NONE).sum(1).max()) == cfg.inbox_depth
+
+
+@pytest.mark.parametrize("order", ["reverse", "shuffled"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_router_insert_order_does_not_matter(host_lib, n, order):
+    """The insert pass over the candidates in reverse order and in a seeded
+    shuffled order gives the plain router's inbox and plan, unsharded and
+    sharded, on a draw where lanes receive more than K candidates."""
+    _check_insert_order(host_lib, n, order, 5)
+
+
+@pytest.mark.parametrize("E", [8, 16])
+@pytest.mark.parametrize("n", [1, 2])
+def test_router_code_with_wide_entry_rows(host_lib, n, E):
+    """E a multiple of 8: the write pass stores four entry terms and eight
+    cc flags at a time (config 6 has E = 64); Replicates with fewer live
+    entries than a store covers are zero-filled past n_entries."""
+    _check_insert_order(host_lib, n, "shuffled", E)
+
+
+def _check_insert_order(host_lib, n, order, E):
+    from dragonboat_tpu_torch.kernel_bench import random_route_case
+    from dragonboat_tpu_torch.ops.convert import state_from_numpy
+
+    cfg = T.KernelConfig(groups=96, peers=4, log_window=16, inbox_depth=3,
+                         max_entries_per_msg=E, readindex_depth=2)
+    st, out, route, rdelta = random_route_case(np.random.default_rng(70 + n), cfg)
+    s, o = state_from_numpy(st, "cpu"), state_from_numpy(out, "cpu")
+    route, rdelta = torch.from_numpy(route), torch.from_numpy(rdelta)
+    seed = None if order == "reverse" else 500 + n
+    nxts, plans, _ = _host_route(host_lib, K.shard_tree(s, n), K.shard_tree(o, n),
+                                 K.shard_tree(route, n), K.shard_tree(rdelta, n), cfg, seed)
+    ref_nxt, ref_plan = K.route_step_output_reference(s, o, route, rdelta, cfg)
+    _assert_tree_equal(K.unshard_tree(nxts), ref_nxt, ("inbox", n, order))
+    _assert_tree_equal(K.unshard_tree(plans), ref_plan, ("plan", n, order))
+    dest = K._route_columns(s, o, route, rdelta, cfg)[0]
+    assert int(torch.bincount(dest[dest >= 0]).max()) > cfg.inbox_depth
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_router_code_with_shuffled_inserts(host_lib, seed, monkeypatch):
+    """tests/test_multistep.py's draws with the insert pass shuffled."""
+    cfg = T.KernelConfig(**tm.KCFG._asdict())
+    s, out, route, rdelta = _draw(seed, tm.KCFG, monkeypatch)
+    nxts, plans, _ = _host_route(host_lib, [s], [out], [route], [rdelta], cfg, 900 + seed)
+    ref_nxt, ref_plan = K.route_step_output_reference(s, out, route, rdelta, cfg)
+    _assert_tree_equal(nxts[0], ref_nxt, ("inbox", seed))
+    _assert_tree_equal(plans[0], ref_plan, ("plan", seed))

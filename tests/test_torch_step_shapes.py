@@ -72,7 +72,10 @@ def test_host_kernel_steps_a_lane_block_with_the_fleet_cfg(host_lib, lanes):  # 
         ref_s, ref_o = K.step_batch_reference(state_from_numpy(block, "cpu"), ib, ticks, cfg)
         s = state_from_numpy(block, "cpu")
         out = cuda.empty_output(cfg._replace(groups=lanes), "cpu")
-        host_lib.step_batch_host(ctypes.byref(cuda.make_params(s, ib, ticks, out, cfg)))
+        # the kernel's block procedure at the card's block size, staged by
+        # one warp's worth of threads
+        bl = host_lib.step_batch_block_lanes()
+        host_lib.step_batch_host(ctypes.byref(cuda.make_params(s, ib, ticks, out, cfg)), bl, bl)
         for a, b in ((ref_s, s), (ref_o, out)):
             for f in a._fields:
                 assert torch.equal(getattr(a, f), getattr(b, f)), f
