@@ -10,10 +10,11 @@ and measures the step kernel at the 50,000-group kernel regime. Phase 4
 drives the super-step path at BASELINE config 6's shape (3072 co-hosted
 lanes, K=8 inner steps with the on-device router), unsharded and as 4
 logical shards of the card exchanging candidates through the gather
-kernel, in lockstep with the plain path, and times the router (its
-columns kernel and the scatter's insert and write passes, per pass, per
-router call and per shard) and gather kernels, and prints what ptxas
-reported for every kernel. It exits
+kernel, in lockstep with the plain path, holds the columns kernel's
+candidate records against their plain version word for word, times the
+router (its columns kernel and the scatter's insert and write passes, per
+pass, per router call and per shard) and gather kernels, and prints what
+ptxas reported for every kernel. It exits
 non-zero, printing no result, when no CUDA device is present or any phase
 fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -503,8 +504,9 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
     inputs, then its time beside its bound, its plain version's and the
     library call's (router: 8 seeded random draws at config 6's shape and
     one where every routed candidate goes to one of 16 lanes, far past K,
-    each unsharded and as 4 shards; gather: odd and even slab lengths, n in
-    {1, 2, 4})."""
+    each unsharded and as 4 shards, the inbox and plan and, word for word,
+    the columns kernel's candidate records; gather: odd and even record
+    lengths and the old slab shape, n in {1, 2, 4})."""
     from dragonboat_tpu_torch.ops.convert import state_from_numpy
     from dragonboat_tpu_torch.ops.state import MSG
 
@@ -512,7 +514,7 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
     G, P, n = cfg.groups, cfg.peers, SS_SHARDS
     K_, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
     rng = np.random.default_rng(SS_SEED + 1)
-    route_bad, route_cases, most = set(), 0, 0
+    route_bad, record_bad, route_cases, most, words = set(), set(), 0, 0, 0
     for i in range(9):
         st, out, route, rdelta = kb.random_route_case(rng, cfg)
         if i == 8:
@@ -534,26 +536,47 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
         route_bad |= set(mismatches(K.unshard_tree(sh[0]), ref[0], "sharded.inbox.")
                          + mismatches(K.unshard_tree(sh[1]), ref[1], "sharded.plan."))
         route_cases += 2
-        dest = K._route_columns(s, o, route, rdelta, cfg)[0]
+        # the columns kernel's records (into sentinel-filled buffers),
+        # unsharded and per shard, against the plain columns packed
+        for nb, blocks in ((1, [(s, o, route, rdelta)]),
+                           (n, list(zip(*(K.shard_tree(x, n) for x in (s, o, route, rdelta)))))):
+            for j, args in enumerate(blocks):
+                cols = K._route_columns(*args, cfg)
+                want = K._pack_record(*cols, cfg)
+                rec = torch.full_like(want, SENTINELS[0][0])
+                cuda.route_columns_cuda(*args, cfg, record=rec)
+                torch.cuda.synchronize()
+                words += want.numel()
+                off = int((rec != want).sum())
+                if off:
+                    record_bad.add(f"case {i} of {nb} block(s), block {j}: {off} words")
+                if nb == 1:
+                    dest = cols[0]
+                    if not torch.equal(K._widen_record(rec, G, cfg), K._pack_slab(*cols)):
+                        record_bad.add(f"case {i}: the record does not widen to the slab")
         most = max(most, int(torch.bincount(dest[dest >= 0]).max()))
     assert most > K_, f"no router case sent more than K={K_} candidates to a lane"
     log(f"router: {route_cases} cases (most candidates to one lane {most}, K={K_}), "
-        f"mismatched fields {sorted(route_bad) or 0}")
+        f"mismatched fields {sorted(route_bad) or 0}; records: {words} words against "
+        f"_pack_record, mismatched {sorted(record_bad) or 0}")
 
     gather_bad, gather_cases = set(), 0
-    C = cuda.slab_rows(cfg)
-    for ml in (1235, 18432):
+    Gl, C = G // n, 11 + 2 * E
+    Ls = K.record_words(Gl, cfg)
+    # the record at config 6's shard, an odd length, and the old slab shape
+    shapes = ((Ls,), (Ls - 1,), (C, Gl * cuda.candidates_per_lane(cfg)))
+    for shape in shapes:
         for k in (1, 2, 4):
-            slabs = [torch.randint(-2**31, 2**31 - 1, (C, ml), dtype=torch.int32, device=dev)
-                     for _ in range(k)]
-            got = cuda.ring_gather_cuda(slabs)
-            ref = K.ring_gather_reference(slabs)
+            xs = [torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=dev)
+                  for _ in range(k)]
+            got = cuda.ring_gather_cuda(xs)
+            ref = K.ring_gather_reference(xs)
             torch.cuda.synchronize()
             for a, b in zip(got, ref):
                 if not torch.equal(a, b):
-                    gather_bad.add(f"Ml={ml} n={k}")
+                    gather_bad.add(f"shape={shape} n={k}")
             gather_cases += 1
-    log(f"ring_gather: {gather_cases} cases (C={C}, Ml in 1235, 18432; n in 1, 2, 4), "
+    log(f"ring_gather: {gather_cases} cases (shapes {[list(x) for x in shapes]}; n in 1, 2, 4), "
         f"mismatched {sorted(gather_bad) or 0}")
 
     # ---- timings at the main path's shapes (window 3's state and inbox) ----
@@ -575,12 +598,12 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 
     # the router on the step's output (unsharded: the scatter reads a
     # gather of one shard): columns, insert pass, write pass
-    M = G * cuda.candidates_per_lane(cfg)
-    slab = torch.empty((C, M), dtype=torch.int32, device=dev)
+    M, L = G * cuda.candidates_per_lane(cfg), K.record_words(G, cfg)
+    rec = torch.empty((L,), dtype=torch.int32, device=dev)
     nxt, plan = cuda._alloc_inbox(G, K_, E, dev), cuda._alloc_plan(G, P, K_, R, dev)
     _, route, rdelta = kb.superstep_cluster(SS_GROUPS, SS_REPLICAS, cfg, dev)
-    cp = cuda._columns_params(after, o, route, rdelta, slab, plan, cfg)
-    xp = cuda._scatter_params(slab, cuda.alloc_slots(G, K_, dev), 1, 0, G, P, nxt, plan, cfg)
+    cp = cuda._columns_params(after, o, route, rdelta, rec, plan, cfg)
+    xp = cuda._scatter_params(rec, cuda.alloc_slots(G, K_, dev), 1, 0, G, P, nxt, plan, cfg)
     names = ["route_columns_kernel", "route_index_kernel", "route_scatter_kernel"]
 
     def router_call():
@@ -598,16 +621,20 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 
     # the same router as 4 shards: columns per shard, the gather, then each
     # shard's insert and write passes over the gathered stack
-    Gl, Ml = G // n, M // n
+    Ml = M // n
     parts = [K.shard_tree(x, n) for x in (after, o, route, rdelta)]
-    sslabs = [torch.empty((C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
-    sgath = [torch.empty((n, C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
+    srecs = [torch.empty((Ls,), dtype=torch.int32, device=dev) for _ in range(n)]
+    sgath = [torch.empty((n, Ls), dtype=torch.int32, device=dev) for _ in range(n)]
     snxt = [cuda._alloc_inbox(Gl, K_, E, dev) for _ in range(n)]
     splan = [cuda._alloc_plan(Gl, P, K_, R, dev) for _ in range(n)]
-    for i in range(n):
-        launcher("route_columns_launch", cuda._columns_params(
-            *(x[i] for x in parts), sslabs[i], splan[i], cfg), "route_columns")
-    launcher("ring_gather_launch", cuda._gather_params(sslabs, sgath), "ring_gather")
+    scp = [cuda._columns_params(*(x[i] for x in parts), srecs[i], splan[i], cfg)
+           for i in range(n)]
+    shard_cols_ms = kb.device_ms(
+        lambda: [launcher("route_columns_launch", p, "route_columns") for p in scp],
+        lambda: None, 50, names[:1])["route_columns_kernel"]
+    shard_cols_bound = sum(hbm(kb.route_columns_bytes(parts[1][i], parts[2][i], cfg))
+                           for i in range(n)) / n
+    launcher("ring_gather_launch", cuda._gather_params(srecs, sgath), "ring_gather")
     sxp = [cuda._scatter_params(sgath[i], cuda.alloc_slots(G, K_, dev), n, i, Gl, P, snxt[i],
                                 splan[i], cfg) for i in range(n)]
     per_shard = kb.device_ms(lambda: [launcher.scatter(x) for x in sxp], lambda: None, 50,
@@ -618,20 +645,25 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
     shard_bound = sum(hbm(kb.route_scatter_bytes(n, Ml, a, x, cfg, plan_bits=b))
                       for a, x, b in zip(mine, snxt, bits)) / n
 
-    # the gather at config 6 over 4 shards: one slab per shard
-    Ml = M // n
-    slabs = [torch.randint(-9, 9, (C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
-    outs = [torch.empty((n, C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
-    gp = cuda._gather_params(slabs, outs)
-    gather_ms = kb.device_ms(lambda: launcher("ring_gather_launch", gp, "ring_gather"),
-                             lambda: None, 50, ["ring_gather_kernel"])["ring_gather_kernel"]
-    gather_plain = time_ms(lambda: K.ring_gather_reference(slabs), 20)
-    gather_lib = time_ms(lambda: [torch.stack(slabs) for _ in range(n)], 20)
-    gather_bound = kb.ring_gather_bytes(n, C * Ml) / kb.HBM_BYTES_PER_S * 1e3
+    # the gather at config 6 over 4 shards: one record per shard; and, to
+    # read beside earlier runs, one (C, Ml) slab per shard
+    def time_gather(shape):
+        xs = [torch.randint(-9, 9, shape, dtype=torch.int32, device=dev) for _ in range(n)]
+        outs = [torch.empty((n,) + shape, dtype=torch.int32, device=dev) for _ in range(n)]
+        gp = cuda._gather_params(xs, outs)
+        ms = kb.device_ms(lambda: launcher("ring_gather_launch", gp, "ring_gather"),
+                          lambda: None, 50, ["ring_gather_kernel"])["ring_gather_kernel"]
+        return dict(ms=ms, plain_ms=time_ms(lambda: K.ring_gather_reference(xs), 20),
+                    library_ms=time_ms(lambda: [torch.stack(xs) for _ in range(n)], 20),
+                    bound_ms=hbm(kb.ring_gather_bytes(n, xs[0].numel())))
+
+    gather = time_gather((Ls,))
+    gather_slab = time_gather((C, Ml))
     log(f"step_batch @ {G} lanes (config 6 window 3): kernel {step_ms:.4f} ms, "
         f"plain {step_plain:.2f} ms, bound {step_bound:.5f} ms")
-    log(f"route_columns @ {M} candidates (C={C}): kernel {cols_ms:.4f} ms, bound "
-        f"{cols_bound:.5f} ms; route_index (insert pass) {index_ms:.4f} ms, bound "
+    log(f"route_columns @ {M} candidates (record {L} words): kernel {cols_ms:.4f} ms, bound "
+        f"{cols_bound:.5f} ms; per shard of {n} ({Ls} words) {shard_cols_ms:.4f} ms, bound "
+        f"{shard_cols_bound:.5f} ms; route_index (insert pass) {index_ms:.4f} ms, bound "
         f"{index_bound:.5f} ms; route_scatter (write pass, {accepted} accepted) "
         f"{scat_ms:.4f} ms, bound {scat_bound:.5f} ms; scatter per router call (both passes) "
         f"{index_ms + scat_ms:.4f} ms, bound {index_bound + scat_bound:.5f} ms; router call "
@@ -640,14 +672,19 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
     log(f"route scatter per shard ({n} shards, {Ml} candidates each, {sum(mine)} accepted): "
         f"insert pass {shard_index_ms:.4f} ms, write pass {shard_scat_ms:.4f} ms, both "
         f"{shard_index_ms + shard_scat_ms:.4f} ms, bound {shard_bound:.5f} ms")
-    log(f"ring_gather n={n} x ({C}, {Ml}): kernel {gather_ms:.4f} ms, plain {gather_plain:.4f} ms, "
-        f"library torch.stack x{n} {gather_lib:.4f} ms, bound {gather_bound:.5f} ms")
-    if route_bad or gather_bad:
-        raise AssertionError(f"router {sorted(route_bad)}, gather {sorted(gather_bad)}")
+    for what, g in ((f"{Ls}-word records", gather), (f"({C}, {Ml}) slabs", gather_slab)):
+        log(f"ring_gather n={n} x {what}: kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
+            f"library torch.stack x{n} {g['library_ms']:.4f} ms, bound {g['bound_ms']:.5f} ms")
+    if route_bad or record_bad or gather_bad:
+        raise AssertionError(f"router {sorted(route_bad)}, records {sorted(record_bad)}, "
+                             f"gather {sorted(gather_bad)}")
     return {
         "step_batch": dict(ms=step_ms, plain_ms=step_plain, bound_ms=step_bound),
         "route_columns": dict(ms=cols_ms, plain_ms=route_plain, bound_ms=cols_bound,
-                              library_ms=None, cases=route_cases, bad=route_bad),
+                              library_ms=None, cases=route_cases, bad=route_bad | record_bad,
+                              record_words=L, records_checked_words=words,
+                              per_shard_ms=shard_cols_ms,
+                              per_shard_bound_ms=shard_cols_bound),
         "route_index": dict(ms=index_ms, plain_ms=route_plain, bound_ms=index_bound,
                             library_ms=None, cases=route_cases, bad=route_bad,
                             per_shard_ms=shard_index_ms),
@@ -659,8 +696,10 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
                               scatter_per_shard_ms=shard_index_ms + shard_scat_ms,
                               scatter_per_shard_bound_ms=shard_bound,
                               router_call_ms=call_ms),
-        "ring_gather": dict(ms=gather_ms, plain_ms=gather_plain, bound_ms=gather_bound,
-                            library_ms=gather_lib, cases=gather_cases, bad=gather_bad),
+        "ring_gather": dict(**gather, cases=gather_cases, bad=gather_bad, record_words=Ls,
+                            slab_shape=[C, Ml], slab_shape_ms=gather_slab["ms"],
+                            slab_shape_bound_ms=gather_slab["bound_ms"],
+                            slab_shape_library_ms=gather_slab["library_ms"]),
     }
 
 

@@ -390,36 +390,37 @@ def _inbox_of(planes, device) -> Inbox:
 def route_columns_bytes(out, route, cfg: KernelConfig) -> int:
     """The least bytes the columns kernel moves on this data: the StepOutput
     planes it reads, self_slot, route and rdelta read once; the ring entries
-    of the wanted Replicates (5 B each); the slab and the plan bits written
-    once."""
-    from .ops.cuda import _COL_OUT, candidates_per_lane, slab_rows
+    of the wanted Replicates (5 B each); the candidate record and the plan
+    bits written once."""
+    from .ops.cuda import _COL_OUT
+    from .ops.kernel import candidates_per_lane, record_words
 
     G, P = route.shape
     nb = lambda t: t.numel() * t.element_size()
     read = sum(nb(getattr(out, f)) for f in _COL_OUT) + 4 * G + 2 * nb(route)
     want = ((out.send_flags & SEND_REPLICATE) != 0) & (route >= 0)
     ents = int(torch.clamp(out.send_n_entries, 0, cfg.max_entries_per_msg)[want].sum())
-    M = G * candidates_per_lane(cfg)
-    return read + 5 * ents + 4 * slab_rows(cfg) * M + M
+    return read + 5 * ents + 4 * record_words(G, cfg) + G * candidates_per_lane(cfg)
 
 
 def route_scatter_bytes(n: int, Ml: int, accepted: int, nxt: Inbox, cfg: KernelConfig,
                         plan_bits: int = None) -> int:
     """The least bytes one shard's scatter (both passes) moves on this
-    data: the dest row of every shard's slab read once, the other C - 1
-    rows of each candidate accepted into this shard's lanes read once,
-    this shard's inbox written once and one plan byte per accepted
-    candidate of this shard (`plan_bits`, `accepted` when None)."""
-    from .ops.cuda import slab_rows
-
+    data: the dest row of every shard's record read once; of each
+    candidate accepted into this shard's lanes, its 10 other header words
+    and its live entries (a term and a cc byte each, 5 B) read once; this
+    shard's inbox written once and one plan byte per accepted candidate of
+    this shard (`plan_bits`, `accepted` when None)."""
     inbox_b = sum(t.numel() * t.element_size() for t in nxt)
+    live = torch.clamp(nxt.n_entries, 0, cfg.max_entries_per_msg)[nxt.mtype == MSG.REPLICATE]
     bits = accepted if plan_bits is None else plan_bits
-    return route_index_bytes(n, Ml) + 4 * (slab_rows(cfg) - 1) * accepted + inbox_b + bits
+    return (route_index_bytes(n, Ml) + 40 * accepted + 5 * int(live.sum()) + inbox_b
+            + bits)
 
 
 def route_index_bytes(n: int, Ml: int) -> int:
     """The part of the scatter's bytes that its insert pass moves: the dest
-    row of every shard's slab, read once."""
+    row of every shard's record, read once."""
     return 4 * n * Ml
 
 
@@ -432,9 +433,10 @@ def rebase_bytes(state: RaftTensors) -> int:
     return 4 * state.term.shape[0] + 2 * nb
 
 
-def ring_gather_bytes(n: int, slab_elems: int) -> int:
-    """n slabs read once, n stacks of n slabs written once (i32)."""
-    return 4 * n * slab_elems + 4 * n * n * slab_elems
+def ring_gather_bytes(n: int, words: int) -> int:
+    """n records of `words` i32 read once, n stacks of n records written
+    once."""
+    return 4 * n * words + 4 * n * n * words
 
 
 def random_route_case(rng: np.random.Generator, cfg: KernelConfig):

@@ -14,13 +14,18 @@ launches on PyTorch's current stream and counts the launch in LAUNCHES):
 - `step_batch_cuda`: `csrc/step_batch.cu`, one protocol step. Every shape
   comes from the tensors, as in the reference, so a lane block of a larger
   fleet runs with the fleet's cfg.
-- `route_step_output_cuda`: `csrc/route.cu`, the router between inner
-  steps: the columns kernel, then the scatter's two passes (the insert
-  pass builds a K-deep candidate list per destination lane in a (G, K)
-  scratch, the write pass writes the inbox and the plan from it and clears
-  the scratch for its next use).
+- `route_columns_cuda`: `csrc/route.cu`'s columns kernel, one lane block's
+  candidate record (`kernel.record_words` words: the 11 header rows of
+  every candidate, then an entry run per Replicate) and its plan bits
+  zeroed.
+- `route_step_output_cuda`: the router between inner steps: the columns
+  kernel, then the scatter's two passes (the insert pass builds a K-deep
+  candidate list per destination lane in a (G, K) scratch, the write pass
+  writes the inbox and the plan from it and clears the scratch for its
+  next use).
 - `ring_gather_cuda`: `csrc/ring_gather.cu`, the candidate exchange between
-  the lane blocks of a sharded super-step.
+  the lane blocks of a sharded super-step: every block's record to every
+  block.
 - `shard_route_cuda`: columns per shard, one gather, both scatter passes
   per shard.
 
@@ -43,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .kernel import candidates_per_lane, record_words
 from .state import Inbox, KernelConfig, RaftTensors, RoutePlan, StepOutput, CTR, MSG
 
 PMAX, RMAX = 8, 4
@@ -192,7 +198,7 @@ class RouteColumnsParams(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in _COL_STATE]
         + [(f, ctypes.c_void_p) for f in _COL_OUT_NAMES]
-        + [(f, ctypes.c_void_p) for f in ("route", "rdelta", "slab", *_PLAN)]
+        + [(f, ctypes.c_void_p) for f in ("route", "rdelta", "record", *_PLAN)]
         + [(n, ctypes.c_int32) for n in ("G", "P", "K", "R", "E", "W", "M")]
     )
 
@@ -433,15 +439,6 @@ def step_batch_cuda(
 # ----------------------------------------------------------------- router
 
 
-def slab_rows(cfg: KernelConfig) -> int:
-    """C = 11 + 2E rows of the candidate slab."""
-    return 11 + 2 * cfg.max_entries_per_msg
-
-
-def candidates_per_lane(cfg: KernelConfig) -> int:
-    return 4 * cfg.peers + cfg.inbox_depth + cfg.readindex_depth
-
-
 def _alloc_inbox(G, K, E, device) -> Inbox:
     i32, b = torch.int32, torch.bool
     shapes = [((G, K), i32)] * 6 + [((G, K), b)] + [((G, K), i32)] * 3 + [
@@ -462,7 +459,11 @@ def _alloc_plan(G, P, K, R, device, steps=None) -> RoutePlan:
     return RoutePlan(*(torch.empty(lead + s, dtype=torch.bool, device=device) for s in shapes))
 
 
-def _columns_params(s: RaftTensors, out: StepOutput, route, rdelta, slab,
+def _alloc_record(G: int, cfg: KernelConfig, device) -> torch.Tensor:
+    return torch.empty((record_words(G, cfg),), dtype=torch.int32, device=device)
+
+
+def _columns_params(s: RaftTensors, out: StepOutput, route, rdelta, record,
                     plan: RoutePlan, cfg: KernelConfig) -> RouteColumnsParams:
     """Check the router's inputs for one lane block (tensors on any one
     device; the launchers take only the card's) and fill the columns
@@ -483,35 +484,52 @@ def _columns_params(s: RaftTensors, out: StepOutput, route, rdelta, slab,
         setattr(p, name, _check(what, "out." + f, getattr(out, f), shape, dt, dev))
     p.route = _check(what, "route", route, (G, P), i32, dev)
     p.rdelta = _check(what, "rdelta", rdelta, (G, P), i32, dev)
-    M = G * candidates_per_lane(cfg)
-    p.slab = _check(what, "slab", slab, (slab_rows(cfg), M), i32, dev)
+    p.record = _check(what, "record", record, (record_words(G, cfg),), i32, dev)
     for f, t, shape in zip(_PLAN, plan, [(G, P)] * 4 + [(G, K), (G, R)]):
         setattr(p, f, _check(what, f, t, shape, b, dev))
-    p.G, p.P, p.K, p.R, p.E, p.W, p.M = G, P, K, R, E, W, M
+    p.G, p.P, p.K, p.R, p.E, p.W = G, P, K, R, E, W
+    p.M = G * candidates_per_lane(cfg)
     return p
 
 
 def _scatter_params(gathered, slots, n: int, my: int, Gl: int, P: int, nxt: Inbox,
                     plan: RoutePlan, cfg: KernelConfig) -> RouteScatterParams:
     """Check one shard's scatter inputs and outputs and fill the struct of
-    the scatter's two passes (`gathered` is the (n, C, Ml) stack, for n = 1
-    a (C, M) slab; `slots` the (n * Gl, K) scratch of alloc_slots)."""
+    the scatter's two passes (`gathered` is the (n, L) stack of the n
+    shards' records, for n = 1 also one record; `slots` the (n * Gl, K)
+    scratch of alloc_slots)."""
     what = "route_scatter"
     K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
     dev = gathered.device
-    Ml = Gl * candidates_per_lane(cfg)
-    C = slab_rows(cfg)
+    L = record_words(Gl, cfg)
     p = RouteScatterParams()
-    p.gathered = _check(what, "gathered", gathered.reshape(n, C, Ml) if gathered.dim() == 2
-                        else gathered, (n, C, Ml), torch.int32, dev)
+    p.gathered = _check(what, "gathered", gathered[None] if gathered.dim() == 1 else gathered,
+                        (n, L), torch.int32, dev)
     p.slots = _check(what, "slots", slots, (n * Gl, K), torch.int32, dev)
     ref = _alloc_inbox(1, K, E, "cpu")
     for f, t, r in zip(Inbox._fields, nxt, ref):
         setattr(p, f, _check(what, "next." + f, t, (Gl,) + tuple(r.shape[1:]), r.dtype, dev))
     for f, t, shape in zip(_PLAN, plan, [(Gl, P)] * 4 + [(Gl, K), (Gl, R)]):
         setattr(p, f, _check(what, f, t, shape, torch.bool, dev))
-    p.n, p.Gl, p.P, p.K, p.R, p.E, p.M, p.my = n, Gl, P, K, R, E, Ml, my
+    p.n, p.Gl, p.P, p.K, p.R, p.E, p.my = n, Gl, P, K, R, E, my
+    p.M = Gl * candidates_per_lane(cfg)
     return p
+
+
+def route_columns_cuda(
+    s: RaftTensors, out: StepOutput, route, rdelta, cfg: KernelConfig,
+    record: Optional[torch.Tensor] = None, plan: Optional[RoutePlan] = None,
+) -> Tuple[torch.Tensor, RoutePlan]:
+    """The columns kernel alone (csrc/route.cu) for one lane block: its
+    candidate record, equal to kernel._pack_record of the plain columns,
+    and its RoutePlan bits zeroed (both allocated when None)."""
+    dev = _on_cuda(s.term, "route_columns")
+    G, P = s.member.shape
+    record = _alloc_record(G, cfg, dev) if record is None else record
+    plan = _alloc_plan(G, P, cfg.inbox_depth, cfg.readindex_depth, dev) if plan is None else plan
+    _Launcher(dev)("route_columns_launch", _columns_params(s, out, route, rdelta, record, plan,
+                                                           cfg), "route_columns")
+    return record, plan
 
 
 def route_step_output_cuda(
@@ -519,72 +537,68 @@ def route_step_output_cuda(
     nxt: Optional[Inbox] = None, plan: Optional[RoutePlan] = None,
 ) -> Tuple[Inbox, RoutePlan]:
     """The router on the card (csrc/route.cu): the columns kernel writes
-    the candidate slab; the scatter's insert and write passes read it as a
-    gather of one shard and write the next Inbox and the RoutePlan
+    the candidate record; the scatter's insert and write passes read it as
+    a gather of one shard and write the next Inbox and the RoutePlan
     (allocated when None)."""
     dev = _on_cuda(s.term, "route_step_output")
     G, P = s.member.shape
     K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
     nxt = _alloc_inbox(G, K, E, dev) if nxt is None else nxt
-    plan = _alloc_plan(G, P, K, R, dev) if plan is None else plan
-    slab = torch.empty((slab_rows(cfg), G * candidates_per_lane(cfg)), dtype=torch.int32,
-                       device=dev)
-    cols = _columns_params(s, out, route, rdelta, slab, plan, cfg)
-    scat = _scatter_params(slab, alloc_slots(G, K, dev), 1, 0, G, P, nxt, plan, cfg)
-    launch = _Launcher(dev)
-    launch("route_columns_launch", cols, "route_columns")
-    launch.scatter(scat)
+    record, plan = route_columns_cuda(s, out, route, rdelta, cfg, plan=plan)
+    _Launcher(dev).scatter(
+        _scatter_params(record, alloc_slots(G, K, dev), 1, 0, G, P, nxt, plan, cfg))
     return nxt, plan
 
 
 # --------------------------------------------------------- candidate gather
 
 
-def _gather_params(slabs: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
-    n = len(slabs)
+def _gather_params(records: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+    n = len(records)
     if not 1 <= n <= MAX_SHARDS:
         raise ValueError(f"ring_gather takes 1 to {MAX_SHARDS} shards, got {n}")
-    dev = slabs[0].device
-    shape = tuple(slabs[0].shape)
+    dev = records[0].device
+    shape = tuple(records[0].shape)
     p = RingGatherParams()
-    for i, (x, y) in enumerate(zip(slabs, outs)):
-        p.src[i] = _check("ring_gather", f"slab {i}", x, shape, torch.int32, dev)
+    for i, (x, y) in enumerate(zip(records, outs)):
+        p.src[i] = _check("ring_gather", f"record {i}", x, shape, torch.int32, dev)
         p.dst[i] = _check("ring_gather", f"out {i}", y, (n,) + shape, torch.int32, dev)
-    p.L, p.n = slabs[0].numel(), n
+    p.L, p.n = records[0].numel(), n
     return p
 
 
-def ring_gather_cuda(slabs: Sequence[torch.Tensor],
+def ring_gather_cuda(records: Sequence[torch.Tensor],
                      outs: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
-    """All-gather of n (C, Ml) i32 slabs on one card (csrc/ring_gather.cu):
-    every shard gets the (n, C, Ml) stack, shard-major; `outs` are
+    """All-gather of n equal-shape i32 tensors on one card
+    (csrc/ring_gather.cu), the lane blocks' candidate records on the card
+    path: every shard gets the (n, ...) stack, shard-major; `outs` are
     preallocated stacks or None."""
-    dev = _on_cuda(slabs[0], "ring_gather")
-    n = len(slabs)
+    dev = _on_cuda(records[0], "ring_gather")
+    n = len(records)
     if outs is None:
-        outs = [torch.empty((n,) + tuple(slabs[0].shape), dtype=torch.int32, device=dev)
+        outs = [torch.empty((n,) + tuple(records[0].shape), dtype=torch.int32, device=dev)
                 for _ in range(n)]
-    p = _gather_params(slabs, outs)
+    p = _gather_params(records, outs)
     _Launcher(dev)("ring_gather_launch", p, "ring_gather")
     return list(outs)
 
 
 def shard_route_cuda(states, outs, routes, rdeltas, cfg: KernelConfig):
     """The cross-shard router on the card: the columns kernel per shard,
-    one gather launch, the scatter's two passes per shard (each replaying
-    the insert over every shard's candidates, and writing its own inbox
-    rows and its own candidates' plan bits)."""
+    one gather launch of the records, the scatter's two passes per shard
+    (each replaying the insert over every shard's candidates, and writing
+    its own inbox rows and its own candidates' plan bits)."""
     n = len(states)
     dev = _on_cuda(states[0].term, "shard_route")
     Gl, P = states[0].member.shape
     K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
-    C, Ml = slab_rows(cfg), Gl * candidates_per_lane(cfg)
-    slabs = [torch.empty((C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
-    gathered = [torch.empty((n, C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
+    records = [_alloc_record(Gl, cfg, dev) for _ in range(n)]
+    gathered = [torch.empty((n, record_words(Gl, cfg)), dtype=torch.int32, device=dev)
+                for _ in range(n)]
     nxts = [_alloc_inbox(Gl, K, E, dev) for _ in range(n)]
     plans = [_alloc_plan(Gl, P, K, R, dev) for _ in range(n)]
-    cols = [_columns_params(*a, cfg) for a in zip(states, outs, routes, rdeltas, slabs, plans)]
-    gp = _gather_params(slabs, gathered)
+    cols = [_columns_params(*a, cfg) for a in zip(states, outs, routes, rdeltas, records, plans)]
+    gp = _gather_params(records, gathered)
     scat = [_scatter_params(gathered[i], alloc_slots(n * Gl, K, dev), n, i, Gl, P, nxts[i],
                             plans[i], cfg) for i in range(n)]
     launch = _Launcher(dev)
@@ -619,17 +633,16 @@ class _Block:
         self.bufs = (merge_residual(resid, inbox), _alloc_inbox(G, K, E, dev))
         self.outs = _alloc_output(G, P, K, R, dev, steps)
         self.plans = _alloc_plan(G, P, K, R, dev, steps)
-        self.slab = torch.empty((slab_rows(cfg), G * candidates_per_lane(cfg)),
-                                dtype=torch.int32, device=dev)
+        self.record = _alloc_record(G, cfg, dev)
         self.slots = alloc_slots(n * G, K, dev)
         zeros = torch.zeros_like(ticks)
         at = lambda tree, t: type(tree)(*(x[t] for x in tree))
         # full checks once, on step 0's tensors; later steps differ only in
         # the addresses of the inbox buffers, the ticks and the step slices
         step0 = make_params(s, self.bufs[0], ticks, at(self.outs, 0), cfg)
-        cols0 = _columns_params(s, at(self.outs, 0), route, rdelta, self.slab,
+        cols0 = _columns_params(s, at(self.outs, 0), route, rdelta, self.record,
                                 at(self.plans, 0), cfg)
-        g = self.slab if gathered is None else gathered
+        g = self.record if gathered is None else gathered
         # the caller's residual is written in place by the last inner step
         scat0 = _scatter_params(g, self.slots, n, my, G, P, resid, at(self.plans, 0), cfg)
         # per step only addresses change: slice t of a stacked plane lies t
@@ -672,7 +685,7 @@ class _Block:
 def multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg: KernelConfig, steps: int):
     """The super-step on the card: per inner step one step_batch launch,
     one route_columns launch and the scatter's two launches (route_index,
-    route_scatter; the scatter reads the slab as a gather of one shard; no
+    route_scatter; the scatter reads the record as a gather of one shard; no
     gather is launched)."""
     dev = _on_cuda(s.term, "multi_step")
     blk = _Block(s, inbox, ticks, resid, route, rdelta, cfg, steps, 1, 0, None)
@@ -692,11 +705,11 @@ def sharded_multi_step_cuda(states, inboxes, ticks, resids, routes, rdeltas,
     n = len(states)
     dev = _on_cuda(states[0].term, "sharded_multi_step")
     Gl = states[0].member.shape[0]
-    C, Ml = slab_rows(cfg), Gl * candidates_per_lane(cfg)
-    gathered = [torch.empty((n, C, Ml), dtype=torch.int32, device=dev) for _ in range(n)]
+    gathered = [torch.empty((n, record_words(Gl, cfg)), dtype=torch.int32, device=dev)
+                for _ in range(n)]
     blks = [_Block(states[i], inboxes[i], ticks[i], resids[i], routes[i], rdeltas[i], cfg,
                    steps, n, i, gathered[i]) for i in range(n)]
-    gp = _gather_params([b.slab for b in blks], gathered)
+    gp = _gather_params([b.record for b in blks], gathered)
     launch = _Launcher(dev)
     for t in range(steps):
         for b in blks:

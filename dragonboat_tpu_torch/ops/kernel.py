@@ -30,9 +30,11 @@ of the JAX package's scan over step_batch + route_step_output). On the card
 the router is two hand-written kernels (`csrc/route.cu`); its plain version
 is `route_step_output_reference`. `sharded_multi_step_batch` runs the same
 super-step over n lane blocks (logical shards of one device), exchanging
-the candidate slabs between blocks after every inner step through
+the candidates between blocks after every inner step through
 `_gather_candidates` (the hand-written `csrc/ring_gather.cu` on the card,
-the counterpart of the JAX package's `_pallas_ring_gather`).
+the counterpart of the JAX package's `_pallas_ring_gather`): the plain path
+exchanges the reference's (11 + 2E, Ml) slabs, the card path the narrower
+candidate record (`_pack_record`, `_widen_record`).
 """
 from __future__ import annotations
 
@@ -1454,6 +1456,63 @@ def _pack_slab(dest, fields, efields):
     entry-term rows and E entry-cc rows (bools as 0/1)."""
     cols = [dest] + [f.to(i32) for f in fields]
     return torch.cat([torch.stack(cols)] + [ef.to(i32).T for ef in efields])
+
+
+# The candidate record: what the card path exchanges in place of the slab
+# (csrc/route.cu's header note). One flat i32 buffer per lane block of Gl
+# lanes: the slab's first 11 rows [11][Ml], then one run of Xe = E +
+# ceil(E/4) words per Replicate candidate (Gl * P of them, at their index in
+# the Replicate block): E entry terms, then E cc flags as bytes, four to a
+# word (flag e in bits 8 * (e % 4) of word E + e // 4). The slab's entry
+# rows of every other kind are zero, so the record leaves them out.
+
+
+def candidates_per_lane(cfg: KernelConfig) -> int:
+    return sum(_route_segments(cfg.peers, cfg.inbox_depth, cfg.readindex_depth))
+
+
+def entry_words(E: int) -> int:
+    """Words of one Replicate's entry run in the record."""
+    return E + (E + 3) // 4
+
+
+def record_words(Gl: int, cfg: KernelConfig) -> int:
+    """L: words of the candidate record of a block of Gl lanes."""
+    return 11 * Gl * candidates_per_lane(cfg) + Gl * cfg.peers * entry_words(
+        cfg.max_entries_per_msg)
+
+
+def _pack_record(dest, fields, efields, cfg: KernelConfig):
+    """The plain version of csrc/route.cu's columns kernel after
+    _route_columns: the lane block's candidate record, an i32 vector of
+    record_words(Gl, cfg) words."""
+    E, P = cfg.max_entries_per_msg, cfg.peers
+    runs = dest.shape[0] // candidates_per_lane(cfg) * P
+    head = torch.stack([dest] + [f.to(i32) for f in fields])
+    cc = efields[1][:runs].to(torch.int64)
+    cc = torch.nn.functional.pad(cc, (0, (-E) % 4)).reshape(runs, -1, 4)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=dest.device)
+    cc_words = (cc << shifts).sum(-1).to(i32)  # each byte 0 or 1: no overflow
+    ents = torch.cat([efields[0][:runs].to(i32), cc_words], dim=1)
+    return torch.cat([head.reshape(-1), ents.reshape(-1)])
+
+
+def _widen_record(record, Gl: int, cfg: KernelConfig):
+    """A lane block's candidate record back into the reference's (11 + 2E,
+    Ml) slab (zero entry rows for every candidate but a Replicate)."""
+    E, P = cfg.max_entries_per_msg, cfg.peers
+    Ml, runs = Gl * candidates_per_lane(cfg), Gl * P
+    if tuple(record.shape) != (record_words(Gl, cfg),):
+        raise ValueError(f"a record of {Gl} lanes has {record_words(Gl, cfg)} words, "
+                         f"got shape {tuple(record.shape)}")
+    ents = record[11 * Ml:].reshape(runs, entry_words(E))
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=record.device)
+    cc = (ents[:, E:].to(torch.int64)[:, :, None] >> shifts) & 0xFF
+    slab = torch.zeros((11 + 2 * E, Ml), dtype=i32, device=record.device)
+    slab[:11] = record[:11 * Ml].reshape(11, Ml)
+    slab[11:11 + E, :runs] = ents[:, :E].T
+    slab[11 + E:, :runs] = cc.reshape(runs, -1)[:, :E].T.to(i32)
+    return slab
 
 
 def _shard_route_reference(states, outs, routes, rdeltas, cfg: KernelConfig):

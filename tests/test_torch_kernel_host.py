@@ -330,3 +330,51 @@ def test_step_bytes_counts_only_what_the_step_needs():
     after.seed.view(torch.int32)[:2] ^= 1
     after.last_index[0] += 7
     assert step_bytes(s, empty, ticks, out, after) == base + 4 * 3 + 4 * 2 + 4 + 7 * 5
+
+
+def test_router_and_gather_bytes_count_the_record():
+    """The router's and the gather's byte bounds count the candidate
+    record: its 11 header rows and one entry run per Replicate (E terms
+    and ceil(E/4) cc words), and for the scatter 10 header words per
+    accepted candidate plus 5 B per live entry of an accepted Replicate."""
+    from dragonboat_tpu_torch import kernel_bench as kb
+
+    cfg = T.KernelConfig(groups=6, peers=4, log_window=16, inbox_depth=3,
+                         max_entries_per_msg=5, readindex_depth=2)
+    Gc, P, Kd, R, E = 6, 4, 3, 2, 5
+    Ml = Gc * (4 * P + Kd + R)
+    L = 11 * Ml + Gc * P * (E + 2)
+    assert K.entry_words(E) == 7 and K.entry_words(64) == 80
+    assert K.record_words(Gc, cfg) == L
+    out = cuda.empty_output(cfg, "cpu")
+    for t in out:
+        t.zero_()
+    route = torch.full((Gc, P), -1, dtype=torch.int32)
+    nb = lambda t: t.numel() * t.element_size()
+    planes = sum(nb(getattr(out, f)) for f in cuda._COL_OUT) + 4 * Gc + 2 * nb(route)
+    base = planes + 4 * L + Ml
+    assert kb.route_columns_bytes(out, route, cfg) == base
+    # 5 B per live ring entry of a wanted Replicate, n_entries clipped to E
+    out.send_flags[0, 1] = T.SEND_REPLICATE
+    out.send_n_entries[0, 1] = E + 3
+    out.send_flags[1, 2] = T.SEND_REPLICATE | T.SEND_HEARTBEAT
+    out.send_n_entries[1, 2] = 2
+    out.send_n_entries[2, 0] = 4  # not a Replicate: no entries read
+    route[0, 1], route[1, 2], route[2, 0] = 3, 4, 5
+    assert kb.route_columns_bytes(out, route, cfg) == base + 5 * (E + 2)
+
+    nxt = cuda._alloc_inbox(Gc, Kd, E, "cpu")
+    for t in nxt:
+        t.zero_()
+    nxt.mtype.fill_(T.MSG.NONE)
+    inbox_b = sum(nb(t) for t in nxt)
+    assert kb.route_index_bytes(2, Ml) == 8 * Ml
+    assert kb.route_scatter_bytes(2, Ml, 0, nxt, cfg) == 8 * Ml + inbox_b
+    nxt.mtype[0, 0], nxt.n_entries[0, 0] = T.MSG.REPLICATE, E + 1
+    nxt.mtype[1, 2], nxt.n_entries[1, 2] = T.MSG.REPLICATE, 3
+    nxt.mtype[2, 1], nxt.n_entries[2, 1] = T.MSG.HEARTBEAT, 9
+    assert kb.route_scatter_bytes(2, Ml, 3, nxt, cfg) == (
+        8 * Ml + 40 * 3 + 5 * (E + 3) + inbox_b + 3)
+    assert kb.route_scatter_bytes(2, Ml, 3, nxt, cfg, plan_bits=1) == (
+        8 * Ml + 40 * 3 + 5 * (E + 3) + inbox_b + 1)
+    assert kb.ring_gather_bytes(4, L) == 4 * 4 * L + 4 * 16 * L

@@ -6,7 +6,9 @@ only the first clip(n_entries, 0, E) entry terms and cc flags of a chosen
 candidate and writes zeros past them without reading them. That is exact
 because `_route_columns` masks a Replicate's entries with
 e < n_entries (`e_live` in dragonboat_tpu/ops/kernel.py) and gives every
-other kind n_entries = 0 and zero entries. Checked on the JAX package's
+other kind n_entries = 0 and zero entries; the candidate record
+(`_pack_record`, tests/test_torch_route_record.py) leaves those words out
+for the same reason. Checked on the JAX package's
 `_route_columns` and on the port's, for every column (candidates and
 non-candidates alike), over tests/test_multistep.py's seeded draws.
 """

@@ -4,9 +4,13 @@ against the port's plain router, exact on every field.
 `csrc/route.cu` compiles as plain C++ too (its `RT_DEV` functions are
 `static inline` without nvcc, and the atomicMin becomes a plain compare),
 so g++ builds a small library whose host loops run the columns code for
-every candidate, the scatter's insert pass for every gathered candidate
-position and its write pass for every (lane, slot) and thread of the slot,
-with the same parameter structs `ops/cuda.py` fills for the card. The
+every thread of every block of a columns launch (entry runs, then each
+kind's header columns), the scatter's insert pass for every gathered
+candidate position and its write pass for every (lane, slot) and thread of
+the slot, with the same parameter structs `ops/cuda.py` fills for the card.
+Every shard's record the columns code writes equals `kernel._pack_record`
+of the plain columns, word for word, and the scatter reads those records
+as the card path gathers them. The
 insert pass runs over the candidates in reverse order, or in a seeded
 shuffled order, which shows that the cascading atomicMin lists do not
 depend on arrival order; after the write pass the scratch is free again.
@@ -39,8 +43,11 @@ _HOST_MAIN = r"""
 extern "C" int route_columns_host_params_size() { return (int)sizeof(RouteColumnsParams); }
 extern "C" int route_scatter_host_params_size() { return (int)sizeof(RouteScatterParams); }
 
-extern "C" void route_columns_host(const RouteColumnsParams* p) {
-  for (int c = 0; c < p->M; ++c) route_candidate(*p, c);
+// every thread of every block of a columns launch of bt-thread blocks
+extern "C" void route_columns_host(const RouteColumnsParams* p, int bt) {
+  const int blocks = columns_blocks(*p, bt);
+  for (int b = 0; b < blocks; ++b)
+    for (int t = 0; t < bt; ++t) columns_thread(*p, b, t, bt);
 }
 
 // the insert pass over the gathered positions in the given order (reverse
@@ -72,7 +79,7 @@ def host_lib(tmp_path_factory):
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", cuda.CSRC,
                     "-o", str(lib), str(src)], check=True, capture_output=True)
     so = ctypes.CDLL(str(lib))
-    so.route_columns_host.argtypes = [ctypes.c_void_p]
+    so.route_columns_host.argtypes = [ctypes.c_void_p, ctypes.c_int]
     so.route_scatter_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     for fn in ("route_columns_host", "route_scatter_host"):
         getattr(so, fn).restype = None
@@ -91,24 +98,28 @@ def _filled(tree):
     return tree
 
 
-def _host_route(so, states, outs, routes, rdeltas, cfg, order_seed=None):
-    """The columns code per shard, the plain gather, the scatter's two
-    passes per shard (the insert in reverse order, or shuffled by
-    `order_seed`); returns (per-shard Inbox, per-shard RoutePlan, slabs)
-    and checks that each shard's scratch is free again afterwards."""
+def _host_route(so, states, outs, routes, rdeltas, cfg, order_seed=None, bt=256):
+    """The columns code per shard (blocks of `bt` threads), the plain
+    gather of the records, the scatter's two passes per shard (the insert
+    in reverse order, or shuffled by `order_seed`); returns (per-shard
+    Inbox, per-shard RoutePlan, records). Checks that each record is
+    _pack_record of the shard's plain columns and that each shard's scratch
+    is free again afterwards."""
     n = len(states)
     Gl, P = states[0].member.shape
     K_, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
     Ml = Gl * cuda.candidates_per_lane(cfg)
-    slabs = [torch.full((cuda.slab_rows(cfg), Ml), SENTINEL, dtype=torch.int32)
-             for _ in range(n)]
+    records = [torch.full((K.record_words(Gl, cfg),), SENTINEL, dtype=torch.int32)
+               for _ in range(n)]
     plans = [_filled(cuda._alloc_plan(Gl, P, K_, R, "cpu")) for _ in range(n)]
     nxts = [_filled(cuda._alloc_inbox(Gl, K_, E, "cpu")) for _ in range(n)]
     for i in range(n):
-        p = cuda._columns_params(states[i], outs[i], routes[i], rdeltas[i], slabs[i],
+        p = cuda._columns_params(states[i], outs[i], routes[i], rdeltas[i], records[i],
                                  plans[i], cfg)
-        so.route_columns_host(ctypes.byref(p))
-    gathered = K.ring_gather_reference(slabs)
+        so.route_columns_host(ctypes.byref(p), bt)
+        cols = K._route_columns(states[i], outs[i], routes[i], rdeltas[i], cfg)
+        assert torch.equal(records[i], K._pack_record(*cols, cfg)), ("record", i)
+    gathered = K.ring_gather_reference(records)
     for i in range(n):
         slots = cuda.alloc_slots(n * Gl, K_, "cpu")
         p = cuda._scatter_params(gathered[i], slots, n, i, Gl, P, nxts[i], plans[i], cfg)
@@ -118,7 +129,7 @@ def _host_route(so, states, outs, routes, rdeltas, cfg, order_seed=None):
             order = torch.from_numpy(perm.astype(np.int32))
         so.route_scatter_host(ctypes.byref(p), None if order is None else order.data_ptr())
         assert bool((slots == cuda.ROUTE_EMPTY).all()), "the write pass left a slot taken"
-    return nxts, plans, slabs
+    return nxts, plans, records
 
 
 def _draw(seed, kcfg, monkeypatch):
@@ -133,13 +144,15 @@ def _draw(seed, kcfg, monkeypatch):
 def test_router_code_matches_plain_router(host_lib, seed, monkeypatch):
     cfg = T.KernelConfig(**tm.KCFG._asdict())
     s, out, route, rdelta = _draw(seed, tm.KCFG, monkeypatch)
-    nxts, plans, slabs = _host_route(host_lib, [s], [out], [route], [rdelta], cfg)
+    nxts, plans, records = _host_route(host_lib, [s], [out], [route], [rdelta], cfg)
     ref_nxt, ref_plan = K.route_step_output_reference(s, out, route, rdelta, cfg)
     _assert_tree_equal(nxts[0], ref_nxt, ("inbox", seed))
     _assert_tree_equal(plans[0], ref_plan, ("plan", seed))
-    # the columns code writes the plain version's slab exactly
-    ref_slab = K._pack_slab(*K._route_columns(s, out, route, rdelta, cfg))
-    assert torch.equal(slabs[0], ref_slab), seed
+    # the columns code writes the plain version's record exactly, and the
+    # record widens to the reference's slab
+    cols = K._route_columns(s, out, route, rdelta, cfg)
+    assert torch.equal(records[0], K._pack_record(*cols, cfg)), seed
+    assert torch.equal(K._widen_record(records[0], cfg.groups, cfg), K._pack_slab(*cols)), seed
     assert int(sum(int(p.sum()) for p in ref_plan)) > 0
 
 
@@ -245,3 +258,52 @@ def test_router_code_with_shuffled_inserts(host_lib, seed, monkeypatch):
     ref_nxt, ref_plan = K.route_step_output_reference(s, out, route, rdelta, cfg)
     _assert_tree_equal(nxts[0], ref_nxt, ("inbox", seed))
     _assert_tree_equal(plans[0], ref_plan, ("plan", seed))
+
+
+@pytest.mark.parametrize("bt", [32, 48])
+def test_columns_code_at_other_block_sizes(host_lib, bt):
+    """The columns launch's block ranges at blocks of 32 and 48 threads (an
+    entry run's threads then straddle two blocks): the same record, inbox
+    and plan as the plain router, on a draw with wide entry runs (E=16)."""
+    from dragonboat_tpu_torch.kernel_bench import random_route_case
+    from dragonboat_tpu_torch.ops.convert import state_from_numpy
+
+    cfg = T.KernelConfig(groups=24, peers=4, log_window=32, inbox_depth=3,
+                         max_entries_per_msg=16, readindex_depth=2)
+    st, out, route, rdelta = random_route_case(np.random.default_rng(90 + bt), cfg)
+    s, o = state_from_numpy(st, "cpu"), state_from_numpy(out, "cpu")
+    route, rdelta = torch.from_numpy(route), torch.from_numpy(rdelta)
+    nxts, plans, _ = _host_route(host_lib, [s], [o], [route], [rdelta], cfg, bt=bt)
+    ref_nxt, ref_plan = K.route_step_output_reference(s, o, route, rdelta, cfg)
+    _assert_tree_equal(nxts[0], ref_nxt, ("inbox", bt))
+    _assert_tree_equal(plans[0], ref_plan, ("plan", bt))
+
+
+def test_router_params_refuse_a_record_of_the_wrong_length():
+    """The columns and scatter wrappers check the record's length (and the
+    gathered stack's shape) before any launch."""
+    from dragonboat_tpu_torch.kernel_bench import random_route_case
+    from dragonboat_tpu_torch.ops.convert import state_from_numpy
+
+    cfg = T.KernelConfig(groups=8, peers=4, log_window=16, inbox_depth=3,
+                         max_entries_per_msg=5, readindex_depth=2)
+    G, P, K_, R, E = 8, 4, 3, 2, 5
+    st, out, route, rdelta = random_route_case(np.random.default_rng(3), cfg)
+    s, o = state_from_numpy(st, "cpu"), state_from_numpy(out, "cpu")
+    route, rdelta = torch.from_numpy(route), torch.from_numpy(rdelta)
+    L = K.record_words(G, cfg)
+    plan, nxt = cuda._alloc_plan(G, P, K_, R, "cpu"), cuda._alloc_inbox(G, K_, E, "cpu")
+    cuda._columns_params(s, o, route, rdelta, torch.zeros(L, dtype=torch.int32), plan, cfg)
+    for bad in (torch.zeros(L - 1, dtype=torch.int32), torch.zeros((11 + 2 * E, G * 22),
+                                                                   dtype=torch.int32)):
+        with pytest.raises(ValueError, match="record"):
+            cuda._columns_params(s, o, route, rdelta, bad, plan, cfg)
+    slots = cuda.alloc_slots(2 * G, K_, "cpu")
+    cuda._scatter_params(torch.zeros((2, L), dtype=torch.int32), slots, 2, 0, G, P, nxt, plan,
+                         cfg)
+    for bad in (torch.zeros((2, L + 1), dtype=torch.int32), torch.zeros(L, dtype=torch.int32),
+                torch.zeros(2 * L, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="gathered"):
+            cuda._scatter_params(bad, slots, 2, 0, G, P, nxt, plan, cfg)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda.route_columns_cuda(s, o, route, rdelta, cfg)
