@@ -6,22 +6,29 @@ Builds the hand-written CUDA kernels from the sources in this checkout,
 drives the port's main path (a 3-replica x 1024-group loopback cluster at
 BASELINE config 2's engine shape: elect, propose, read, transfer) through
 them, holds every kernel against its plain PyTorch version on the card,
-and measures the step kernel at the 50,000-group kernel regime. Phase 4
-drives the super-step path at BASELINE config 6's shape (3072 co-hosted
-lanes, K=8 inner steps with the on-device router), unsharded and as 4
+and measures the step kernel at the 50,000-group kernel regime; phase 2
+also holds it at P=5, the 5-replica configs' shape (5120 co-hosted
+lanes). Phase 4 drives the super-step path at BASELINE config 6's shape
+(3072 co-hosted lanes, K=8 inner steps with the on-device router),
+unsharded and as 4
 logical shards of the card exchanging candidates through the gather
 kernel, in lockstep with the plain path, holds the columns kernel's
 candidate records against their plain version word for word, times the
 router (its columns kernel and the scatter's insert and write passes, per
 pass, per router call and per shard) and gather kernels, and prints what
 ptxas reported for every kernel. Phase 5 runs the port's engine through
-its public entry: BASELINE configs 2 and 6 (3 NodeHosts sharing one engine
-core, 1024 groups x 3 replicas, WAL and fsync in a temp dir, K=1 and K=8)
-through `dragonboat_tpu_torch.e2e`, with gates on elections, commits,
-replica convergence, a linearizable history, syncs outside the blessed
-seams, kernel builds and the kernels each path launched; it also times
-lane activation. It exits non-zero, printing no result, when no CUDA
-device is present or any phase fails. The last line of its output is
+its public entry, `dragonboat_tpu_torch.e2e.run_ladder_config` (the
+config's NodeHosts sharing one engine core, WAL and fsync in a temp dir):
+BASELINE configs 2 and 6 (1024 groups x 3 replicas, K=1 and K=8), then 1
+(one group), 3 (9 ReadIndex reads per write), 4 (1% of replication
+traffic dropped), 5 (snapshots and membership churn) at 1024 groups x 5
+replicas, and 8 (ReadIndex reads, then lease reads, 1024 groups x 3),
+with gates on elections, commits, replica convergence, a linearizable
+history, syncs outside the blessed seams, kernel builds, each config's
+reads, lease serves, drops, snapshots and membership changes, and the
+kernels each path launched; it also times lane activation. It exits
+non-zero, printing no result, when no CUDA device is present or any
+phase fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -225,6 +232,59 @@ def phase_compare(K, cuda, cfg, kept, big):
             err_all = max(err_all, err)
     log(f"compare: {cases} cases, mismatched fields: {sorted(bad_all) or 0}")
     return cases, sorted(bad_all), err_all
+
+
+# the 5-replica configs' kernel shape (BASELINE configs 3-5 through the
+# shared core: bench.py:307-320 widths, 1024 groups x 5 replicas)
+P5_GROUPS, P5_REPLICAS, P5_STEPS = 1024, 5, 8
+
+
+def phase_compare_p5(K, cuda, kb):
+    """step_batch at P=5 (max_peers=5, log_window=256, inbox_depth=4,
+    readindex_depth=4, 5120 co-hosted lanes): states captured from 8
+    windows of the config-6 scenario at 5 replicas (elections, proposals,
+    forwarded reads, a leader change and transfers, each window K=8 steps
+    of the plain path with the plain router), each stepped on its window's
+    host inbox and on two random inboxes, kernel against plain version,
+    every field; fails unless 3-of-5 elections left every group led.
+    Returns (cases, mismatched fields, max error, cfg, the state and
+    inbox of the last case)."""
+    from dragonboat_tpu_torch.kernel_bench import random_inbox
+    from dragonboat_tpu_torch.ops.convert import state_from_numpy, state_to_numpy
+    from dragonboat_tpu_torch.ops.state import ROLE, make_empty_inbox
+
+    cfg = kb.superstep_config(P5_GROUPS, P5_REPLICAS)
+    dev = torch.device("cuda", 0)
+    s, route, rdelta = kb.superstep_cluster(P5_GROUPS, P5_REPLICAS, cfg, dev)
+    G = cfg.groups
+    ticks = torch.ones((G,), dtype=torch.int32, device=dev)
+    resid = make_empty_inbox(cfg, dev)
+    rc = torch.zeros((G,), dtype=torch.int32, device=dev)
+    leaders = np.zeros(P5_GROUPS, np.int64)
+    rng = np.random.default_rng(SS_SEED + 5)
+    cases, bad_all, err_all, last = 0, set(), 0, None
+    for w in range(SS_WINDOWS):
+        ib, leaders = kb.host_window(w, rc, leaders, P5_GROUPS, P5_REPLICAS, cfg, rng, dev)
+        if w in (1, 3, 5, 7):
+            npst = state_to_numpy(s)
+            draws = [ib] + [state_from_numpy(random_inbox(rng, npst, cfg), "cuda")
+                            for _ in range(2)]
+            for d in draws:
+                bad, err = compare_case(K, cuda, cfg, s, d, ticks)
+                cases += 1
+                bad_all |= set(bad)
+                err_all = max(err_all, err)
+            last = (K.clone_state(s), ib)
+        s, _o, _pl, resid, rc = K.multi_step_batch_reference(
+            s, ib, ticks, resid, route, rdelta, cfg, P5_STEPS)
+        kb.compact(s)
+    lanes = torch.from_numpy(leaders).to(dev)
+    led = int((s.role[lanes] == ROLE.LEADER).sum())
+    log(f"compare P=5 @ {G} lanes (W={cfg.log_window} K={cfg.inbox_depth} "
+        f"R={cfg.readindex_depth}): {cases} cases, {led}/{P5_GROUPS} groups led, "
+        f"mismatched fields: {sorted(bad_all) or 0}")
+    assert led == P5_GROUPS, "the P=5 scenario did not elect every group"
+    return cases, sorted(bad_all), err_all, cfg, last
 
 
 # ------------------------------------------------- phase 4: the super-step
@@ -710,8 +770,18 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 
 # ------------------------------------------- phase 5: the engine on the card
 
-# BASELINE configs 2 and 6 (bench.py:1129, :1149-1157) through NodeHost
-E2E_CONFIGS = (2, 6)
+# BASELINE configs through NodeHost (bench.py:1124-1182): 2 and 6 at full
+# width and a 10 s window; then 1 (one group) and 8 (1024 groups) at full
+# width, and 3, 4 and 5 at 1024 groups x 5 replicas (5120 lanes, nominally
+# 10,000 and 50,000 groups: stamped scaled_down). The load runs through a
+# 2 s warm-up (and until every group has a wave in flight), so each
+# window opens on waves in flight. The new configs take 4 s windows; a
+# wave through 5120 lanes lands 6-16 s after it is sent (about one engine
+# step a second, slower on a slow host), and a window runs on until every
+# group committed a wave inside it (e2e.bench_e2e)
+E2E_CONFIGS = (2, 6, 1, 3, 4, 5, 8)
+E2E_GROUPS = {3: 1024, 4: 1024, 5: 1024}
+E2E_WINDOW_S = {1: 4.0, 3: 4.0, 4: 4.0, 5: 4.0, 8: 4.0}
 # the kernels each config's engine path must launch
 E2E_KERNELS = {1: ("step_batch",),
                8: ("step_batch", "route_columns", "route_index", "route_scatter")}
@@ -720,8 +790,17 @@ E2E_KERNELS = {1: ("step_batch",),
 # what the kernels line carries of each engine run
 E2E_KEYS = ("value", "committed", "seconds", "commit_latency_p50_s", "commit_latency_p99_s",
             "engine_steps_per_s", "engine_steps_total", "host_stage_window_s",
-            "out_of_seam_syncs", "kernel_builds",
-            "busy", "bring_up_s", "converged", "lincheck_ok", "card", "power_limit")
+            "groups_committed_in_window", "elections_in_window", "client_dropped",
+            "thread_cpu_share",
+            "out_of_seam_syncs", "kernel_builds", "engine_steps", "pipelined_steps",
+            "busy", "bring_up_s", "wall_s", "converged", "lincheck_ok", "card", "power_limit")
+# and of the read, drop and churn configs
+E2E_TRAFFIC_KEYS = ("groups", "replicas", "nominal_groups", "scaled_down", "read_mode",
+                    "reads_completed", "reads_submitted", "reads_per_sec",
+                    "read_latency_p50_s", "read_latency_p99_s", "lease_reads_local",
+                    "lease_reads_fallback", "lease_vs_readindex_reads", "readindex_mode",
+                    "drop_rate", "drops_applied", "snapshots_requested",
+                    "membership_changes", "out_of_seam_sites")
 
 
 def time_activation(kb, cfg, batch=4096):
@@ -749,65 +828,76 @@ def time_activation(kb, cfg, batch=4096):
             "bound_ms": nbytes / kb.HBM_BYTES_PER_S * 1e3}
 
 
-def phase_engine(cuda, K, config, groups=None, device="cuda"):
-    """Three NodeHosts sharing one engine core on `device`, 1024 groups x 3
-    replicas (dragonboat_tpu_torch.e2e at the config's shape, WAL and
-    fsync in a temp dir): elect, warm up 2 s, measure 10 s of pipelined
-    proposal waves, a 1 s profiler window, settle, check replicas and a
-    3-client propose/read history. Fails unless every group elected,
-    something committed, the replicas converged, the history is
-    linearizable, the measured window made no out-of-seam sync and no
-    kernel build, the plain step never ran and every kernel of the path
-    launched. Returns (report, launches in the run)."""
-    import tempfile
-
+def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
+    """BASELINE config `config` through NodeHost on `device`
+    (dragonboat_tpu_torch.e2e.run_ladder_config: the config's NodeHosts
+    sharing one engine core, WAL and fsync in a temp dir): elect, run the
+    load through a 2 s warm-up, measure pipelined proposal waves with the
+    config's reads, drops or churn, a 1 s profiler window, settle, a
+    3-client propose/read history, and the replicas. Fails on any of e2e.gate_failures
+    (elections, commits, convergence, lincheck, kernel builds, syncs off
+    the seams outside config 5's rare reconcile paths, and the reads,
+    lease serves, drops, snapshots and membership changes of each
+    config), and on the card unless the plain step never ran, every
+    kernel of the path launched and, at K=1 without churn (whose
+    reconciles drain the pipeline by design), more than half of the
+    window's steps were decoded pipelined.
+    Returns (report, launches in the run)."""
     from dragonboat_tpu_torch import e2e
     from dragonboat_tpu_torch.engine import vector
 
     spec = e2e.LADDER[config]
-    groups = groups or spec["groups"]
+    groups = groups or E2E_GROUPS.get(config, spec["groups"])
+    duration = duration or E2E_WINDOW_S.get(config, spec["duration"])
     vector.ACTIVATIONS.clear()
     for name in cuda.LAUNCHES:
         cuda.LAUNCHES[name] = 0
     K.REFERENCE_CALLS["step_batch"] = 0
-    with tempfile.TemporaryDirectory(prefix="dbtorch-smoke-") as d:
-        r = e2e.bench_e2e(groups=groups, duration_s=spec["duration"],
-                          payload=spec["payload"], workdir=d, wave=spec["wave"],
-                          replicas=spec["replicas"],
-                          steps_per_sync=spec["steps_per_sync"], device=device)
+    r = e2e.run_ladder_config(config, groups=groups, duration=duration, device=device)
     launches = dict(cuda.LAUNCHES)
-    r["config"] = config
     r["activation_batches"] = {str(k): v for k, v in sorted(vector.ACTIVATIONS.items())}
     r["launches"] = launches
     r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
     busy = r.get("busy") or {}
     lat = lambda k: f"{r.get(k, 0) * 1e3:.3f}"
-    k = spec["steps_per_sync"]
+    k = spec.get("steps_per_sync", 1)
     stages = sorted((r.get("host_stage_window_s") or {}).items(), key=lambda kv: -kv[1])
-    log(f"engine config {config} ({spec['label']}): {r.get('committed', 0)} committed in "
-        f"{r.get('seconds')} s = {r.get('value', 0):.1f} proposals/s, commit latency p50 "
+    traffic = {t: r[t] for t in ("reads_completed", "reads_per_sec", "read_latency_p99_s",
+                                 "lease_reads_local", "lease_reads_fallback",
+                                 "lease_vs_readindex_reads", "drops_applied",
+                                 "snapshots_requested", "membership_changes") if t in r}
+    log(f"engine config {config} ({spec['label']}; {groups} groups x {spec['replicas']}): "
+        f"{r.get('committed', 0)} committed in {r.get('seconds')} s "
+        f"({r.get('groups_committed_in_window')} groups committed in it), value "
+        f"{r.get('value', 0):.1f}/s (proposals + reads), commit latency p50 "
         f"{lat('commit_latency_p50_s')} ms p99 {lat('commit_latency_p99_s')} ms, "
         f"{r.get('engine_steps_per_s', 0):.2f} engine steps/s (K={k}: "
-        f"{r.get('engine_steps_per_s', 0) / k:.2f} dispatches/s), window seconds by stage "
-        f"{dict(stages)}, "
-        f"out-of-seam syncs {r.get('out_of_seam_syncs')}, kernel builds {r.get('kernel_builds')}, "
-        f"device busy share {busy.get('device_busy_share', 'not measured')} over "
+        f"{r.get('engine_steps_per_s', 0) / k:.2f} dispatches/s), traffic {traffic}, "
+        f"window seconds by stage {dict(stages)}, "
+        f"thread CPU s per s {r.get('thread_cpu_share')}, "
+        f"out-of-seam syncs {r.get('out_of_seam_syncs')} {r.get('out_of_seam_sites') or ''}, "
+        f"kernel builds {r.get('kernel_builds')}, "
+        f"device busy share {busy.get('device_busy_share') or 'not measured'} over "
         f"{busy.get('window_s', 0)} s ({busy.get('window_steps', 0)} steps), "
         f"elected {r.get('groups_elected')}/{groups} in "
         f"{r.get('bring_up_s')} s, converged {r.get('converged')}, lincheck "
         f"{r.get('lincheck_ok')} [{r.get('card')}, {r.get('power_limit')}]")
     log(json.dumps({"engine": r}, default=str))
-    assert "error" not in r, r.get("error")
-    assert r["groups_elected"] == groups, "a group never elected"
-    assert r["committed"] > 0, "nothing committed"
-    assert r["converged"], "the replicas did not converge"
-    assert r["lincheck_ok"] and not r["lincheck_errors"], "the history is not linearizable"
-    assert r["out_of_seam_syncs"] == 0, f"out-of-seam syncs {r['out_of_seam_sites']}"
-    assert r["kernel_builds"] == 0, "a kernel was built inside the measured window"
+    bad = e2e.gate_failures(r)
+    # the whole record goes to stdout above; the message carries what
+    # explains a failed window
+    why = {k: r.get(k) for k in ("committed", "client_dropped", "seconds",
+                                 "groups_committed_in_window", "elections_in_window",
+                                 "engine_steps", "commit_latency_p99_s", "wall_s",
+                                 "thread_cpu_share")}
+    assert not bad, f"config {config}: {bad} {why}"
     if device == "cuda":
         assert r["plain_step_calls"] == 0, "the engine ran the plain step on the card"
-        idle = [k for k in E2E_KERNELS[spec["steps_per_sync"]] if not launches[k]]
+        idle = [n for n in E2E_KERNELS[k] if not launches[n]]
         assert not idle, f"the engine path never launched {idle}"
+        if k == 1 and not spec.get("churn"):
+            assert 2 * r["pipelined_steps"] > r["engine_steps"], (
+                f"{r['pipelined_steps']} of {r['engine_steps']} steps decoded pipelined")
     return r, launches
 
 
@@ -832,7 +922,7 @@ def main() -> int:
             f"{r['spill_stores']}/{r['spill_loads']} bytes spill stores/loads, "
             f"{r['smem']} bytes static shared memory")
     frames = {f"P{p}_K{k}_R{r}": cuda.step_frame_bytes(p, k, r)
-              for p, k, r in ((4, 4, 4), (8, 8, 4))}
+              for p, k, r in ((4, 4, 4), (5, 4, 4), (8, 8, 4))}
     log(f"step_batch dynamic shared memory per block: {frames}")
     assert set(ptxas) == set(cuda._KERNELS), f"ptxas reported {sorted(ptxas)}"
 
@@ -844,8 +934,12 @@ def main() -> int:
     bcfg = res["cfg"]
     big = (bcfg, res["state"], res["inbox"], res["ticks"])
 
-    # ---- phase 2: kernel against its plain version ----
+    # ---- phase 2: kernel against its plain version (P=4, P=8, P=5) ----
     cases, bad, err = phase_compare(K, cuda, cfg, kept, big)
+    p5_cases, p5_bad, p5_err, p5_cfg, p5_last = phase_compare_p5(K, cuda, kb)
+    cases += p5_cases
+    bad = sorted(set(bad) | {"P5." + f for f in p5_bad})
+    err = max(err, p5_err)
 
     # ---- timings: main-path shape, then the kernel regime ----
     def kernel_vs_plain(c, st, ib, ticks, reps_k, reps_p):
@@ -891,6 +985,14 @@ def main() -> int:
     log(f"step_batch @ {bcfg.groups} groups (P=8 W=512 K=8 E=8): kernel {bms:.4f} ms, "
         f"wrapper host part {bhost_ms:.4f} ms, plain {bplain_ms:.2f} ms, bound {bbound_ms:.5f} ms "
         f"({bbytes} B)")
+    p5_st, p5_ib = p5_last
+    p5_ticks = torch.ones((p5_cfg.groups,), dtype=torch.int32, device="cuda")
+    p5_ms, p5_host_ms, p5_plain_ms, p5_bytes = kernel_vs_plain(p5_cfg, p5_st, p5_ib, p5_ticks,
+                                                               50, 3)
+    p5_bound_ms = p5_bytes / kb.HBM_BYTES_PER_S * 1e3
+    log(f"step_batch @ {p5_cfg.groups} lanes (P=5 W=256 K=4 E=64): kernel {p5_ms:.4f} ms, "
+        f"wrapper host part {p5_host_ms:.4f} ms, plain {p5_plain_ms:.2f} ms, bound "
+        f"{p5_bound_ms:.5f} ms ({p5_bytes} B)")
     # ops.state.rebase (torch ops: the engine's window rebase) at 1024 and
     # 50,000 lanes, its kernels' device time per call beside its byte bound
     from dragonboat_tpu_torch.ops.state import rebase
@@ -933,14 +1035,17 @@ def main() -> int:
     nk = phase_new_kernels(K, cuda, kb, scfg, kept4)
     per_ss = lambda name, r: r["launches_per_superstep"][name]
 
-    # ---- phase 5: the engine through NodeHost, configs 2 and 6 ----
+    # ---- phase 5: the engine through NodeHost, configs 2, 6, 1, 3, 4, 5, 8 ----
     act = time_activation(kb, scfg)
     log(f"activate_lanes @ {scfg.groups} lanes, batch of {act['batch']}: {act['ms']:.4f} ms of "
         f"device time (torch index_put_ ops), bound {act['bound_ms']:.5f} ms ({act['bytes']} B)")
     engines = {c: phase_engine(cuda, K, c) for c in E2E_CONFIGS}
+    # engine steps of the whole run (config 8: both of its runs)
+    steps_of = lambda r: r["engine_steps_total"] + (r.get("readindex_run") or {}).get(
+        "engine_steps_total", 0)
     per_step = lambda name: {
         f"config{c}": {"launches": ln[name],
-                       "per_engine_step": ln[name] / max(1, r["engine_steps_total"])}
+                       "per_engine_step": ln[name] / max(1, steps_of(r))}
         for c, (r, ln) in engines.items()}
 
     ring = "dragonboat_tpu_torch/csrc/"
@@ -961,6 +1066,9 @@ def main() -> int:
         "host_ms": host_ms,
         "regime_50k": {"groups": bcfg.groups, "ms": bms, "host_ms": bhost_ms,
                        "plain_ms": bplain_ms, "bound_ms": bbound_ms},
+        "p5": {"lanes": p5_cfg.groups, "cases": p5_cases, "mismatched_fields": len(p5_bad),
+               "ms": p5_ms, "host_ms": p5_host_ms, "plain_ms": p5_plain_ms,
+               "bound_ms": p5_bound_ms},
         "superstep": {"groups": scfg.groups, "launches": ss_launches["step_batch"],
                       "per_superstep": per_ss("step_batch", unsharded),
                       "per_superstep_sharded": per_ss("step_batch", sharded),
@@ -996,7 +1104,8 @@ def main() -> int:
                              "replaces": "dragonboat_tpu/engine/vector.py:192", **act,
                              "bring_up_batches": {f"config{c}": r["activation_batches"]
                                                   for c, (r, _) in engines.items()}}
-    kernels["engine"] = {f"config{c}": {k: r.get(k) for k in E2E_KEYS}
+    kernels["engine"] = {f"config{c}": {k: r.get(k) for k in E2E_KEYS + E2E_TRAFFIC_KEYS
+                                        if k in E2E_KEYS or k in r}
                          for c, (r, _) in engines.items()}
     log(f"card: {card_line()}")
     log(json.dumps(kernels))

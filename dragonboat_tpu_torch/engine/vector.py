@@ -1138,6 +1138,9 @@ class VectorEngine:
             # width — static stamps, not counters
             "padded_groups": 0,
             "mesh_devices": self._mesh_devices,
+            # K=1 overlap: steps decoded while the next step was already
+            # dispatched (the rest were drained by _flush_pending)
+            "steps_pipelined": 0,
         }
         # ---- tick-fairness watchdog (ROADMAP seed flake) -----------------
         # Inter-iteration latency vs the host's tick period, a starvation
@@ -1844,6 +1847,8 @@ class VectorEngine:
             # per-lane packed_pending window tracking. Swap FIRST so a
             # decode exception cannot also lose the just-dispatched step.
             pending, self._pending = self._pending, (work, packs, slot)
+            if pending is not None:
+                self._sstats["steps_pipelined"] += 1
             self._flush_one(pending)
         else:
             self._decode(work, packs, self._fetch_output(slot))
@@ -4209,7 +4214,18 @@ class VectorEngine:
             "staged_backlog": self._p_staged_backlog,
         }
 
-    def lane_stats(self) -> Dict[tuple, dict]:
+    def _active_lanes(self, host: Optional[int] = None):
+        """The active lanes (of one co-hosted NodeHost when `host` is
+        given) and their lane indexes as an int64 array."""
+        with self._lanes_mu:
+            lanes = [
+                lane
+                for lane in self._lanes.values()
+                if lane.active and (host is None or lane.key[0] == host)
+            ]
+        return lanes, np.fromiter((lane.g for lane in lanes), np.int64, len(lanes))
+
+    def lane_stats(self, host: Optional[int] = None) -> Dict[tuple, dict]:
         """Per-lane introspection derived ENTIRELY from the numpy mirrors
         the decode phase already maintains — zero device syncs: lane key ->
         {node_id, leader_id, term, commit_gap, ticks_since_leader_change}.
@@ -4217,37 +4233,41 @@ class VectorEngine:
         the lane's accepted log runs ahead of its quorum commit — a
         persistently large gap flags a lane that cannot reach quorum).
         Exported ~1/s by NodeHost._export_health_gauges as cluster_id-
-        labelled engine_lane_* gauges and folded into bench.py's JSON."""
+        labelled engine_lane_* gauges and folded into bench.py's JSON.
+        With `host`, only that co-hosted NodeHost's lanes: every host of a
+        shared core exports once a second, so each folds its own lanes
+        (one gather per mirror) rather than the whole core's."""
+        lanes, gs = self._active_lanes(host)
+        last = self._m_last[gs]
+        cols = zip(
+            lanes,
+            self._m_leader[gs].tolist(),
+            self._m_term[gs].tolist(),
+            np.maximum(last - self._m_commit[gs], 0).tolist(),
+            last.tolist(),
+            np.maximum(
+                self.clock.tick - self._m_leader_change_tick[gs], 0
+            ).tolist(),
+            self._m_role[gs].tolist(),
+        )
         out: Dict[tuple, dict] = {}
-        with self._lanes_mu:
-            lanes = list(self._lanes.values())
-        leader = self._m_leader
-        term = self._m_term
-        commit = self._m_commit
-        last = self._m_last
-        role = self._m_role
-        chg = self._m_leader_change_tick
-        tick = self.clock.tick
-        for lane in lanes:
-            if not lane.active:
-                continue
-            g = lane.g
+        for lane, leader, term, gap, last_i, since, role in cols:
             out[lane.key] = {
                 "node_id": lane.node.node_id(),
-                "leader_id": lane.rev.get(int(leader[g]) - 1, 0),
-                "term": int(term[g]),
-                "commit_gap": max(int(last[g] - commit[g]), 0),
+                "leader_id": lane.rev.get(leader - 1, 0),
+                "term": term,
+                "commit_gap": gap,
                 # monotonic append high-water mark in device units: the
                 # placement plane's ingest-rate signal is the DELTA of
                 # this between two load folds (serving/placement.py) —
                 # still a pure mirror read, zero device syncs
-                "last_index": int(last[g]),
-                "ticks_since_leader_change": max(int(tick - chg[g]), 0),
+                "last_index": last_i,
+                "ticks_since_leader_change": since,
                 # lane-variant probes: the replica's role (observer/witness
                 # lanes included) and resident client-payload bytes — a
                 # witness lane must report payload_bytes == 0 (the
                 # observer_witness_churn verdict and tests assert on it)
-                "role": int(role[g]),
+                "role": role,
                 "payload_bytes": lane.arena.payload_bytes,
             }
         return out
@@ -4265,18 +4285,12 @@ class VectorEngine:
         default ranking input). Counter columns (HOT_LANE_COUNTERS) come
         off the same cumulative host mirror as counter_stats — zero
         device syncs, like everything on this surface."""
-        with self._lanes_mu:
-            lanes = [
-                lane
-                for lane in self._lanes.values()
-                if lane.active and (host is None or lane.key[0] == host)
-            ]
+        lanes, gs = self._active_lanes(host)
         total = len(lanes)
         out: Dict[tuple, dict] = {}
         if not lanes:
             return out, 0
         k = max(1, int(k))
-        gs = np.fromiter((lane.g for lane in lanes), np.int64, total)
         gaps = np.maximum(self._m_last[gs] - self._m_commit[gs], 0)
         if total > k:
             pick = np.argpartition(gaps, total - k)[total - k:]
@@ -4311,23 +4325,18 @@ class VectorEngine:
             }
         return out, total
 
-    def leader_snapshot(self) -> Dict[tuple, Tuple[int, int]]:
+    def leader_snapshot(self, host: Optional[int] = None) -> Dict[tuple, Tuple[int, int]]:
         """One vectorized pass over the numpy mirrors: lane key ->
-        (leader_node_id, term) for every active lane. Replaces per-group
-        get_leader_id polling at fleet bring-up (50k lanes = one call)."""
-        out: Dict[tuple, Tuple[int, int]] = {}
-        with self._lanes_mu:
-            lanes = list(self._lanes.values())
-        leader = self._m_leader
-        term = self._m_term
-        for lane in lanes:
-            if not lane.active:
-                continue
-            g = lane.g
-            out[lane.key] = (
-                lane.rev.get(int(leader[g]) - 1, 0), int(term[g])
+        (leader_node_id, term) for every active lane (of one co-hosted
+        NodeHost with `host`). Replaces per-group get_leader_id polling at
+        fleet bring-up (50k lanes = one call)."""
+        lanes, gs = self._active_lanes(host)
+        return {
+            lane.key: (lane.rev.get(leader - 1, 0), term)
+            for lane, leader, term in zip(
+                lanes, self._m_leader[gs].tolist(), self._m_term[gs].tolist()
             )
-        return out
+        }
 
     def attach_host(self) -> int:
         with self._hosts_mu:
@@ -4451,16 +4460,13 @@ class VectorEngineHandle:
         """cluster_id -> (leader_node_id, term) for this host's lanes."""
         return {
             key[1]: v
-            for key, v in self.core.leader_snapshot().items()
-            if key[0] == self.host
+            for key, v in self.core.leader_snapshot(self.host).items()
         }
 
     def lane_stats(self) -> Dict[int, dict]:
         """cluster_id -> per-lane introspection for this host's lanes."""
         return {
-            key[1]: v
-            for key, v in self.core.lane_stats().items()
-            if key[0] == self.host
+            key[1]: v for key, v in self.core.lane_stats(self.host).items()
         }
 
     def lane_counters(self) -> Dict[int, Dict[str, int]]:

@@ -26,9 +26,11 @@ attribution itself a first-class, always-exported plane:
     transfer through ``note_seam_sync()`` (one integer add per step,
     always on). ``install()`` additionally wraps torch's host sync
     points process-wide (``Tensor.cpu``/``.item``/``.tolist``/``.numpy``
-    on a CUDA tensor, and ``torch.cuda.synchronize``) so any OTHER
-    transfer is counted with call-site attribution — a stray sync
-    introduced at runtime shows up in ``engine_device_syncs_*`` metrics.
+    on a tensor of the audited engine's device — the card by default,
+    the CPU when ``install(device="cpu")`` — and
+    ``torch.cuda.synchronize``) so any OTHER transfer is counted with
+    call-site attribution — a stray sync introduced at runtime shows up
+    in ``engine_device_syncs_*`` metrics.
 
   * ``CompileWatch`` — kernel-build accounting: a listener on
     ``ops/cuda.build_kernels`` counts every nvcc build (and its seconds),
@@ -181,13 +183,18 @@ class SyncAudit:
 
     The blessed seam (``VectorEngine._fetch_output``) self-reports via
     ``note_seam_sync()`` unconditionally — one integer add per engine
-    step. ``install()`` wraps the torch calls that make the host wait for
-    the card — ``Tensor.cpu``, ``.item``, ``.tolist`` and ``.numpy`` on a
-    CUDA tensor, and ``torch.cuda.synchronize`` — so every such call NOT
-    made from a blessed frame is counted under its call site
+    step. ``install(device=...)`` wraps the torch calls that read a
+    device tensor on the host — ``Tensor.cpu``, ``.item``, ``.tolist``
+    and ``.numpy`` on a tensor of the audited engine's device type
+    (``"cuda"`` unless the caller names another; an engine on
+    ``device="cpu"`` is audited with ``device="cpu"``, as the JAX
+    package's audit counts fetches on every backend), and
+    ``torch.cuda.synchronize`` — so every such call NOT made from a
+    blessed frame is counted under its call site
     (``file.py:line:function``). The seams themselves wait on a CUDA
-    event, which is not wrapped. Per-call overhead is one device probe
-    and one frame probe — noise next to the transfer itself."""
+    event (or, on the CPU, read the slot's numpy views), which is not
+    wrapped. Per-call overhead is one device probe and one frame probe —
+    noise next to the transfer itself."""
 
     # (path suffix, function name) pairs whose frames are the blessed
     # transfer seam. _fetch_output is the classic one-step seam; _fetch_super is the
@@ -207,6 +214,8 @@ class SyncAudit:
         self.engine_steps = 0
         self._out: Dict[str, int] = {}
         self.installed = False
+        # the device type whose tensors' host reads are counted
+        self.device_type = "cuda"
         self._orig: Dict[str, object] = {}
         self._orig_sync = None
 
@@ -220,17 +229,22 @@ class SyncAudit:
     # for the card)
     _TENSOR_SYNCS = ("cpu", "item", "tolist", "numpy")
 
-    def install(self) -> "SyncAudit":
-        if self.installed:
-            return self
+    def install(self, device=None) -> "SyncAudit":
+        """Wrap the sync points (idempotent). ``device`` names the audited
+        engine's device (a ``torch.device`` or its name); a later call
+        with another device retargets the audit."""
         import torch
 
+        if device is not None:
+            self.device_type = torch.device(device).type
+        if self.installed:
+            return self
         self._orig = {n: getattr(torch.Tensor, n) for n in self._TENSOR_SYNCS}
         self._orig_sync = orig_sync = torch.cuda.synchronize
 
         def wrap(orig):
             def method(t, *a, **k):
-                if t.is_cuda:
+                if t.device.type == self.device_type:
                     self._note_frame(sys._getframe(1))
                 return orig(t, *a, **k)
 
@@ -258,6 +272,7 @@ class SyncAudit:
         torch.cuda.synchronize = self._orig_sync
         self._orig, self._orig_sync = {}, None
         self.installed = False
+        self.device_type = "cuda"
 
     def _note_frame(self, frame) -> None:
         co = frame.f_code
@@ -435,12 +450,17 @@ class DeviceCensus:
         out["planes"] = planes
         if last is None or active is None or W <= 0:
             return out
-        act = np.asarray(active, bool)
+        # the mirrors belong to the engine's loop thread, which activates
+        # lanes while this runs on a tick or sampler thread: fold private
+        # copies, or a mask that gains True entries between numpy's count
+        # of them (the output's size) and its copy loop (which drops the
+        # GIL on large arrays) overruns the output buffer
+        act = np.array(active, dtype=bool)
         n_act = int(act.sum())
         out["lanes_active"] = n_act
-        lastv = np.asarray(last)
+        lastv = np.array(last)
         first = (
-            np.asarray(devfirst) if devfirst is not None
+            np.array(devfirst) if devfirst is not None
             else np.ones_like(lastv)
         )
         # logical slots a lane holds in the ring: indexes

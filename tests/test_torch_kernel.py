@@ -26,6 +26,9 @@ G, W = 16, 32
 CASES = [
     (4, 1, dict(check_quorum=True, witnesses=(2,)), 3),
     (4, 8, dict(check_quorum=True, prevote=True, lease_read=True, lease_margin=1), 3),
+    # the 5-replica configs' peer count (BASELINE configs 3-5): an odd
+    # peer count and its 3-of-5 quorum
+    (5, 8, dict(check_quorum=True, prevote=True, lease_read=True, lease_margin=1), 5),
     (8, 1, dict(check_quorum=True, prevote=True, observers=(3,)), 4),
     (8, 8, dict(lease_read=True, lease_margin=2, witnesses=(4,)), 5),
 ]
