@@ -22,13 +22,20 @@ config's NodeHosts sharing one engine core, WAL and fsync in a temp dir):
 BASELINE configs 2 and 6 (1024 groups x 3 replicas, K=1 and K=8), then 1
 (one group), 3 (9 ReadIndex reads per write), 4 (1% of replication
 traffic dropped), 5 (snapshots and membership churn) at 1024 groups x 5
-replicas, and 8 (ReadIndex reads, then lease reads, 1024 groups x 3),
-with gates on elections, commits, replica convergence, a linearizable
-history, syncs outside the blessed seams, kernel builds, each config's
-reads, lease serves, drops, snapshots and membership changes, and the
-kernels each path launched; it also times lane activation. It exits
-non-zero, printing no result, when no CUDA device is present or any
-phase fails. The last line of its output is
+replicas, 8 (ReadIndex reads, then lease reads, 1024 groups x 3) and 7
+(64 groups x 3 through the serving fronts: per-tenant admission,
+sessions, placement planes), with gates on elections, commits, replica
+convergence, a linearizable history, syncs outside the blessed seams,
+kernel builds, each config's reads, lease serves, drops, snapshots,
+membership changes and sessions, and the kernels each path launched; it
+also times lane activation. Phase 6 puts the fault plane on the card:
+one seed of the chaos matrix (3 hosts on one core, 30% of replication
+dropped, seeded partitions; converged and linearizable) and the overload
+storm's graceful-degradation verdict on one group. After each K=1
+engine run of phases 5-6 the step kernel is held against its plain
+version on states that run stepped, at its own lanes, window and inbox
+depth. It exits non-zero, printing no result, when no CUDA device is
+present or any phase fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -37,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -96,6 +104,77 @@ def compare_case(K, cuda, cfg, state, inbox, ticks):
                     bad.add(prefix + f)
                     err = max(err, d)
     return sorted(bad), err
+
+
+class StepRecorder:
+    """While entered, keeps copies of the (state, inbox, ticks, cfg) that
+    the vector engine's K=1 step is called with, spread over the whole
+    run: one call in 4, halved (and the stride doubled) whenever 6 are
+    held. The copies are clones on the engine's stream (no
+    host read, no launch), for holding the kernel against its plain
+    version afterwards at the shapes the engine really ran."""
+
+    def __init__(self, K):
+        self.K, self.keep, self.every, self.calls, self.kept = K, 3, 4, 0, []
+
+    def __enter__(self):
+        from dragonboat_tpu_torch.engine import vector
+
+        self._vector, self._inner = vector, vector.step_batch
+        clone = self.K.clone_state
+
+        def step(s, inbox, ticks, cfg, out=None):
+            self.calls += 1
+            if self.calls % self.every == 0:
+                self.kept.append((clone(s), clone(inbox), ticks.clone(), cfg))
+                if len(self.kept) == 2 * self.keep:
+                    self.kept, self.every = self.kept[1::2], 2 * self.every
+            return self._inner(s, inbox, ticks, cfg, out=out)
+
+        vector.step_batch = step
+        return self
+
+    def __exit__(self, *exc):
+        self._vector.step_batch = self._inner
+        return False
+
+
+def compare_recorded(K, cuda, rec, seed):
+    """The kernel against its plain version on every copy `rec` kept: on
+    the inbox and ticks the engine stepped it with and on two random
+    inboxes (kernel_bench.random_inbox), every field, each sentinel fill.
+    Fails on any mismatch. Returns the shape, the number of cases, the
+    largest error, how many lanes had a wrapped log ring (last index at
+    or past the window) and the seconds the comparison took."""
+    from dragonboat_tpu_torch.kernel_bench import random_inbox
+    from dragonboat_tpu_torch.ops.convert import state_from_numpy, state_to_numpy
+
+    assert rec.kept, "the engine's step was never recorded"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    cases, bad_all, err_all, wrapped, top = 0, set(), 0, 0, 0
+    for st, ib, ticks, cfg in rec.kept:
+        npst = state_to_numpy(st)
+        wrapped = max(wrapped, int((npst["last_index"] >= cfg.log_window).sum()))
+        top = max(top, int(npst["last_index"].max()))
+        draws = [(ib, ticks)] + [
+            (state_from_numpy(random_inbox(rng, npst, cfg), "cuda"),
+             torch.from_numpy(rng.integers(0, 3, cfg.groups).astype(np.int32)).cuda())
+            for _ in range(2)]
+        for d, t in draws:
+            bad, err = compare_case(K, cuda, cfg, st, d, t)
+            cases += 1
+            bad_all |= set(bad)
+            err_all = max(err_all, err)
+    cfg = rec.kept[-1][3]
+    out = {"lanes": cfg.groups, "peers": cfg.peers, "log_window": cfg.log_window,
+           "inbox_depth": cfg.inbox_depth, "cases": cases, "states": len(rec.kept),
+           "mismatched_fields": sorted(bad_all), "max_abs_err": err_all,
+           "wrapped_lanes": wrapped, "max_last_index": top,
+           "seconds": round(time.perf_counter() - t0, 2)}
+    assert not bad_all, f"kernel disagrees with the plain version at the engine's shape: {out}"
+    return out
 
 
 def time_ms(fn, reps):
@@ -773,13 +852,14 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 # BASELINE configs through NodeHost (bench.py:1124-1182): 2 and 6 at full
 # width and a 10 s window; then 1 (one group) and 8 (1024 groups) at full
 # width, and 3, 4 and 5 at 1024 groups x 5 replicas (5120 lanes, nominally
-# 10,000 and 50,000 groups: stamped scaled_down). The load runs through a
-# 2 s warm-up (and until every group has a wave in flight), so each
+# 10,000 and 50,000 groups: stamped scaled_down); last 7 (64 groups x 3,
+# through the serving fronts) at full width and its 8 s window. The load
+# runs through a 2 s warm-up (and until every group has a wave in flight), so each
 # window opens on waves in flight. The new configs take 4 s windows; a
 # wave through 5120 lanes lands 6-16 s after it is sent (about one engine
 # step a second, slower on a slow host), and a window runs on until every
 # group committed a wave inside it (e2e.bench_e2e)
-E2E_CONFIGS = (2, 6, 1, 3, 4, 5, 8)
+E2E_CONFIGS = (2, 6, 1, 3, 4, 5, 8, 7)
 E2E_GROUPS = {3: 1024, 4: 1024, 5: 1024}
 E2E_WINDOW_S = {1: 4.0, 3: 4.0, 4: 4.0, 5: 4.0, 8: 4.0}
 # the kernels each config's engine path must launch
@@ -800,7 +880,12 @@ E2E_TRAFFIC_KEYS = ("groups", "replicas", "nominal_groups", "scaled_down", "read
                     "read_latency_p50_s", "read_latency_p99_s", "lease_reads_local",
                     "lease_reads_fallback", "lease_vs_readindex_reads", "readindex_mode",
                     "drop_rate", "drops_applied", "snapshots_requested",
-                    "membership_changes", "out_of_seam_sites")
+                    "membership_changes", "out_of_seam_sites",
+                    "workload", "tenants", "placement_enabled", "session_registered_total",
+                    "session_proposals_total", "session_safe_retries_total",
+                    "session_errors_total", "serving_admitted_total", "serving_shed_total",
+                    "serving_wakes_total", "serving_urgent_p99_s", "serving_bulk_p50_s",
+                    "serving_bulk_p99_s", "serving_tenant_latency", "migrations_started")
 
 
 def time_activation(kb, cfg, batch=4096):
@@ -841,7 +926,10 @@ def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
     config), and on the card unless the plain step never ran, every
     kernel of the path launched and, at K=1 without churn (whose
     reconciles drain the pipeline by design), more than half of the
-    window's steps were decoded pipelined.
+    window's steps were decoded pipelined. At K=1 on the card the step
+    kernel is then held against its plain version on states the engine
+    really stepped (StepRecorder; these comparison launches come after
+    the counts are read) and fails on any mismatched field.
     Returns (report, launches in the run)."""
     from dragonboat_tpu_torch import e2e
     from dragonboat_tpu_torch.engine import vector
@@ -853,19 +941,26 @@ def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
     for name in cuda.LAUNCHES:
         cuda.LAUNCHES[name] = 0
     K.REFERENCE_CALLS["step_batch"] = 0
-    r = e2e.run_ladder_config(config, groups=groups, duration=duration, device=device)
+    k = spec.get("steps_per_sync", 1)
+    with StepRecorder(K) as rec:
+        r = e2e.run_ladder_config(config, groups=groups, duration=duration, device=device)
     launches = dict(cuda.LAUNCHES)
+    r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
+    if device == "cuda" and k == 1:
+        # after the counts are read: these calls are not the path's
+        r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, SS_SEED + config)
     r["activation_batches"] = {str(k): v for k, v in sorted(vector.ACTIVATIONS.items())}
     r["launches"] = launches
-    r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
     busy = r.get("busy") or {}
     lat = lambda k: f"{r.get(k, 0) * 1e3:.3f}"
-    k = spec.get("steps_per_sync", 1)
     stages = sorted((r.get("host_stage_window_s") or {}).items(), key=lambda kv: -kv[1])
     traffic = {t: r[t] for t in ("reads_completed", "reads_per_sec", "read_latency_p99_s",
                                  "lease_reads_local", "lease_reads_fallback",
                                  "lease_vs_readindex_reads", "drops_applied",
-                                 "snapshots_requested", "membership_changes") if t in r}
+                                 "snapshots_requested", "membership_changes",
+                                 "session_registered_total", "session_proposals_total",
+                                 "serving_admitted_total", "serving_shed_total",
+                                 "serving_bulk_p50_s", "serving_bulk_p99_s") if t in r}
     log(f"engine config {config} ({spec['label']}; {groups} groups x {spec['replicas']}): "
         f"{r.get('committed', 0)} committed in {r.get('seconds')} s "
         f"({r.get('groups_committed_in_window')} groups committed in it), value "
@@ -881,7 +976,8 @@ def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
         f"{busy.get('window_s', 0)} s ({busy.get('window_steps', 0)} steps), "
         f"elected {r.get('groups_elected')}/{groups} in "
         f"{r.get('bring_up_s')} s, converged {r.get('converged')}, lincheck "
-        f"{r.get('lincheck_ok')} [{r.get('card')}, {r.get('power_limit')}]")
+        f"{r.get('lincheck_ok')}, kernel against plain at the engine's shape "
+        f"{r.get('kernel_vs_plain', 'not compared')} [{r.get('card')}, {r.get('power_limit')}]")
     log(json.dumps({"engine": r}, default=str))
     bad = e2e.gate_failures(r)
     # the whole record goes to stdout above; the message carries what
@@ -899,6 +995,257 @@ def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
             assert 2 * r["pipelined_steps"] > r["engine_steps"], (
                 f"{r['pipelined_steps']} of {r['engine_steps']} steps decoded pipelined")
     return r, launches
+
+
+# ------------------------------------------ phase 6: the fault plane on the card
+
+# the first seed of the chaos matrix (tests/test_chaos_matrix.py) and the
+# storm of the serving tests' graceful-degradation verdict
+# (tests/test_serving.py), at their constants: 5 ms ticks, 30% drops of
+# replication traffic, a 4 s partition schedule; a 0.8 s storm at 800
+# bulk ops/s per tenant after 300 baseline ops
+CHAOS_SEED = 11
+STORM = dict(seed=0xD1A60, storm_s=0.8, baseline_ops=300, capacity_rate=800.0)
+FAULT_RTT_MS = 5
+
+
+def _kv_sm():
+    from dragonboat_tpu_torch.statemachine import IStateMachine, Result
+
+    class KV(IStateMachine):
+        """`key=value` puts, key lookups, a hash of the whole map."""
+
+        def __init__(self, *_):
+            self.d = {}
+
+        def update(self, data):
+            k, v = data.decode().split("=", 1)
+            self.d[k] = v
+            return Result(value=1)
+
+        def lookup(self, q):
+            return self.d.get(q)
+
+        def get_hash(self):
+            return zlib.crc32(json.dumps(sorted(self.d.items())).encode())
+
+        def save_snapshot(self, w, files, done):
+            w.write(json.dumps(self.d).encode())
+
+        def recover_from_snapshot(self, r, files, done):
+            self.d = json.loads(r.read().decode())
+
+    return KV
+
+
+def _fault_host(nid, addrs, reg, workdir, share_scope, device, rtt_ms=FAULT_RTT_MS):
+    from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.transport.loopback import loopback_factory
+
+    return NodeHost(NodeHostConfig(
+        deployment_id=11, rtt_millisecond=rtt_ms,
+        nodehost_dir=f"{workdir}/h{nid}", raft_address=addrs[nid],
+        raft_rpc_factory=lambda listen: loopback_factory(listen, reg),
+        engine=EngineConfig(kind="vector", max_groups=32, max_peers=4, log_window=64,
+                            share_scope=share_scope, device=device)))
+
+
+def phase_chaos(workdir, seed=CHAOS_SEED, device="cuda", rtt_ms=FAULT_RTT_MS):
+    """One seed of the chaos matrix on `device`: 3 NodeHosts sharing one
+    vector core, ticking every `rtt_ms`, FaultPlane(seed, 30% drops of
+    replication traffic) installed on the core's co-hosted drop hook and
+    on every transport, a seeded 4 s partition schedule while a client
+    writes and reads, then heal, one final write, and the verdicts:
+    something committed, the replicas applied the same index and hold
+    the same state, no control-plane message was dropped from a full send
+    queue, and the recorded history is linearizable. The CPU twin of the
+    chaos matrix (tests/test_torch_faults.py) runs this body with
+    device="cpu" and holds the returned `schedule` against the
+    reference's."""
+    import threading
+
+    from dragonboat_tpu_torch.config import Config
+    from dragonboat_tpu_torch.faults import REPLICATION_TYPES, FaultPlane, FaultSpec
+    from dragonboat_tpu_torch.lincheck import HistoryRecorder, check_kv_history
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    cid, ids = 2, (1, 2, 3)
+    fp = FaultPlane(seed, FaultSpec(drop=0.3, only_types=REPLICATION_TYPES))
+    reg, kv = _Registry(), _kv_sm()
+    addrs = {n: f"cm{n}:1" for n in ids}
+    t_start = time.perf_counter()
+    hosts = {n: _fault_host(n, addrs, reg, workdir, f"chip-chaos-{seed}", device, rtt_ms)
+             for n in ids}
+    try:
+        for n, nh in hosts.items():
+            nh.start_cluster(dict(addrs), False, lambda c, _n: kv(),
+                             Config(cluster_id=cid, node_id=n, election_rtt=20,
+                                    heartbeat_rtt=4, snapshot_entries=0))
+        core = hosts[1].engine.core
+
+        def leader():
+            for n, nh in hosts.items():
+                lid, ok = nh.get_leader_id(cid)
+                if ok and lid == n and not nh.is_partitioned():
+                    return nh
+            return None
+
+        deadline = time.monotonic() + 60
+        while leader() is None and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert leader() is not None, f"chaos seed {seed}: no leader elected"
+        rec, stop, committed = HistoryRecorder(), threading.Event(), [0]
+
+        def client():
+            n = 0
+            while not stop.is_set():
+                nh = leader()
+                if nh is None:
+                    time.sleep(0.05)
+                    continue
+                n += 1
+                key = f"k{n % 4}"
+                if n % 3:
+                    op = rec.invoke(0, ("put", key, f"v{n}"))
+                    try:
+                        nh.sync_propose(nh.get_noop_session(cid), f"{key}=v{n}".encode(),
+                                        timeout_s=1.0)
+                        rec.complete(op, None)
+                        committed[0] += 1
+                    except Exception:
+                        rec.unknown(op)  # timed out, refused or dropped: maybe applied
+                else:
+                    op = rec.invoke(0, ("get", key))
+                    try:
+                        rec.complete(op, nh.sync_read(cid, key, timeout_s=1.0))
+                    except Exception:
+                        rec.fail(op)
+
+        t = threading.Thread(target=client, name="chaos-client", daemon=True)
+        t.start()
+        core.set_local_drop_hook(fp.message_hook("local:core"))
+        for n, nh in hosts.items():
+            nh.transport.set_pre_send_batch_hook(fp.batch_hook(f"wire:h{n}"))
+        sched = []
+        for victim, window, idle in fp.partition_schedule(
+                "faultloop", ids, total_s=4.0, min_window_s=0.2, max_window_s=0.5):
+            sched.append((victim, window, idle))
+            hosts[victim].set_partitioned(True)
+            time.sleep(window)
+            hosts[victim].set_partitioned(False)
+            time.sleep(idle)
+        core.set_local_drop_hook(None)
+        for nh in hosts.values():
+            nh.transport.set_pre_send_batch_hook(None)
+            nh.set_partitioned(False)
+        drops = sum(1 for _site, kind, _n, v in fp.schedule_log()
+                    if kind in ("drop", "local_drop") and v)
+        deadline = time.monotonic() + 30
+        while committed[0] == 0 and time.monotonic() < deadline:
+            time.sleep(0.2)
+        stop.set()
+        t.join(timeout=5)
+        assert committed[0] > 0, f"chaos seed {seed}: nothing committed"
+        deadline = time.monotonic() + 45
+        while True:
+            nh = leader()
+            try:
+                if nh is not None:
+                    nh.sync_propose(nh.get_noop_session(cid), b"final=done", 5.0)
+                    break
+            except Exception:
+                if time.monotonic() > deadline:
+                    raise
+            time.sleep(0.1)
+        deadline = time.monotonic() + 30
+        while True:
+            idx = {n: nh.get_applied_index(cid) for n, nh in hosts.items()}
+            if len(set(idx.values())) == 1:
+                break
+            assert time.monotonic() < deadline, f"chaos seed {seed}: applied {idx}"
+            time.sleep(0.05)
+        hashes = {n: nh.get_sm_hash(cid) for n, nh in hosts.items()}
+        assert len(set(hashes.values())) == 1, f"chaos seed {seed}: state {hashes}"
+        urgent = {n: nh.transport.metrics()["queue_dropped_urgent"] for n, nh in hosts.items()}
+        assert not any(urgent.values()), f"chaos seed {seed}: urgent drops {urgent}"
+        hist = rec.history()
+        assert hist and check_kv_history(hist), f"chaos seed {seed}: not linearizable"
+        return {"seed": seed, "committed": committed[0], "ops": len(hist),
+                "partition_windows": len(sched), "schedule": sched, "drop_decisions": drops,
+                "applied_index": idx[1], "seconds": round(time.perf_counter() - t_start, 2)}
+    finally:
+        for nh in hosts.values():
+            nh.stop()
+
+
+def phase_storm(workdir, device="cuda"):
+    """serving.storm.run_overload_storm on one group of one NodeHost's
+    vector engine on `device`: the graceful-degradation verdict (no
+    urgent op shed, urgent p99 bounded, bulk shed fast with hints, the
+    admitted throughput within 20% of the baseline) must hold, and the
+    storm's schedule signature must be the one its seed draws with no
+    host at all."""
+    from dragonboat_tpu_torch.config import Config
+    from dragonboat_tpu_torch.faults import FaultPlane
+    from dragonboat_tpu_torch.serving import run_overload_storm
+    from dragonboat_tpu_torch.serving.storm import STORM_SITE
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    t_start = time.perf_counter()
+    nh = _fault_host(1, {1: "st1:1"}, _Registry(), workdir, None, device)
+    try:
+        nh.start_cluster({1: "st1:1"}, False, lambda c, n: _kv_sm()(),
+                         Config(cluster_id=100, node_id=1, election_rtt=10, heartbeat_rtt=2))
+        deadline = time.monotonic() + 60
+        while not nh.get_leader_id(100)[1] and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert nh.get_leader_id(100)[1], "storm: no leader elected"
+        rep = run_overload_storm(nh, 100, **STORM)
+        fp = FaultPlane(STORM["seed"])
+        list(fp.overload_storm_schedule(STORM_SITE, (1, 2, 3), STORM["storm_s"]))
+        assert rep.ok, f"storm verdicts {rep.verdicts}"
+        assert rep.signature == fp.schedule_signature(sites=(STORM_SITE,)), "storm replay"
+        return {"verdicts": rep.verdicts, "offered": rep.offered, "admitted": rep.admitted,
+                "shed": rep.shed, "urgent_ops": rep.urgent_ops,
+                "baseline_tput": rep.baseline_tput, "storm_tput": rep.storm_tput,
+                "urgent_p99_s": rep.urgent_p99_s, "urgent_baseline_s": rep.urgent_baseline_s,
+                "shed_max_latency_s": rep.shed_max_latency_s,
+                "seconds": round(time.perf_counter() - t_start, 2)}
+    finally:
+        nh.stop()
+
+
+def phase_faults(cuda, K, device="cuda"):
+    """Phase 6: the chaos seed, then the storm, each with the launch
+    counts zeroed just before it; on the card each must have launched the
+    step kernel and never the plain step, and the kernel is then held
+    against its plain version on states the engine stepped (the cores'
+    shape: 32 lanes, W=64); fails unless some compared state had a
+    wrapped log ring (the storm's group passes index 64 every run)."""
+    import tempfile
+
+    out = {}
+    for i, (name, fn) in enumerate((("chaos", phase_chaos), ("storm", phase_storm))):
+        for k in cuda.LAUNCHES:
+            cuda.LAUNCHES[k] = 0
+        K.REFERENCE_CALLS["step_batch"] = 0
+        with tempfile.TemporaryDirectory(prefix=f"dbtorch-{name}-") as d, \
+                StepRecorder(K) as rec:
+            r = fn(d, device=device)
+        r["launches"] = dict(cuda.LAUNCHES)
+        r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
+        if device == "cuda":
+            r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, CHAOS_SEED + i)
+        log(f"faults {name}: {json.dumps(r, default=str)}")
+        if device == "cuda":
+            assert r["plain_step_calls"] == 0, f"{name}: the engine ran the plain step on the card"
+            assert r["launches"]["step_batch"] > 0, f"{name}: the step kernel never launched"
+        out[name] = r
+    if device == "cuda":
+        wrapped = {n: r["kernel_vs_plain"]["wrapped_lanes"] for n, r in out.items()}
+        assert any(wrapped.values()), f"no compared W=64 state had a wrapped ring: {wrapped}"
+    return out
 
 
 def main() -> int:
@@ -1040,6 +1387,16 @@ def main() -> int:
     log(f"activate_lanes @ {scfg.groups} lanes, batch of {act['batch']}: {act['ms']:.4f} ms of "
         f"device time (torch index_put_ ops), bound {act['bound_ms']:.5f} ms ({act['bytes']} B)")
     engines = {c: phase_engine(cuda, K, c) for c in E2E_CONFIGS}
+
+    # ---- phase 6: the fault plane on the card ----
+    faults = phase_faults(cuda, K)
+    # the step kernel against its plain version at the shapes the engine
+    # ran in phases 5 and 6 (each already failed on a mismatch)
+    shapes = {f"config{c}": r["kernel_vs_plain"] for c, (r, _) in engines.items()
+              if "kernel_vs_plain" in r}
+    shapes.update({f"faults_{n}": f["kernel_vs_plain"] for n, f in faults.items()})
+    cases += sum(v["cases"] for v in shapes.values())
+    err = max([err] + [v["max_abs_err"] for v in shapes.values()])
     # engine steps of the whole run (config 8: both of its runs)
     steps_of = lambda r: r["engine_steps_total"] + (r.get("readindex_run") or {}).get(
         "engine_steps_total", 0)
@@ -1074,6 +1431,8 @@ def main() -> int:
                       "per_superstep_sharded": per_ss("step_batch", sharded),
                       **nk["step_batch"]},
         "engine": per_step("step_batch"),
+        "faults": {n: f["launches"]["step_batch"] for n, f in faults.items()},
+        "engine_shapes": shapes,
         "ptxas": ptxas["step_batch_kernel"],
         "frame_bytes": frames,
     }]}
@@ -1107,6 +1466,9 @@ def main() -> int:
     kernels["engine"] = {f"config{c}": {k: r.get(k) for k in E2E_KEYS + E2E_TRAFFIC_KEYS
                                         if k in E2E_KEYS or k in r}
                          for c, (r, _) in engines.items()}
+    kernels["faults"] = {n: {k: v for k, v in f.items()
+                             if k not in ("launches", "kernel_vs_plain")}
+                         for n, f in faults.items()}
     log(f"card: {card_line()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

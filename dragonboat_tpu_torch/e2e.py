@@ -2,14 +2,17 @@
 device, quorum, fsync and apply.
 
 This is the JAX package's `bench.py` (`bench_e2e` with shared=True and
-`_run_ladder_config`) for BASELINE configs 1-6 and 8: N NodeHosts share ONE
+`_run_ladder_config`) for the BASELINE configs 1-8: N NodeHosts share ONE
 engine core (`EngineConfig.share_scope`), G groups x N replicas, each group
 keeping one async batch of `wave` proposals in flight and resubmitting the
 moment it completes. The traffic of each config is bench.py's: R ReadIndex
 reads per write (`read_ratio`, configs 3 and 8), leader-lease reads
 (`read_mode="lease"`, config 8's second run), seeded drops of replication
 traffic over the co-hosted path (`drop_rate`, config 4), and a snapshot plus
-an observer add or delete every 0.5 s (`churn`, config 5). The report keeps
+an observer add or delete every 0.5 s (`churn`, config 5); config 7
+(`through_front`) sends its waves through each host's serving front, per
+tenant, with an at-most-once session lane and a placement plane live
+(bench.py `_front_measure`). The report keeps
 every key of bench.py's record for the config (its stamps and its folds:
 reads, census and counters, history sampler, attribution, lanes, mesh,
 serving, latency and host stages) and adds what a card run needs: the
@@ -77,6 +80,12 @@ LADDER = {
         label="3-node, 1024 groups, 16B, K=8 device-resident super-steps",
         nominal_groups=1024, groups=1024, replicas=3, payload=16,
         wave=128, duration=10.0, steps_per_sync=8,
+    ),
+    7: dict(
+        label="3-node, 64 groups, 16B, through_front: sessions + "
+              "admission + placement",
+        nominal_groups=64, groups=64, replicas=3, payload=16,
+        wave=32, duration=8.0, through_front=True, tenants=4,
     ),
     8: dict(
         label="3-node, 1024 groups, 16B, read_heavy 9:1, "
@@ -317,15 +326,59 @@ def _lane_report(hosts) -> dict:
     }
 
 
-#: bench.py `_serving_report`'s keys as it reads them with no serving front
-#: or placement plane: the port has neither yet (ROADMAP queue 1 item 3),
-#: so the record carries the schema zero-filled
-SERVING_ZERO = {
-    "serving_admitted_total": 0, "serving_shed_total": 0, "serving_wakes_total": 0,
-    "serving_urgent_p99_s": 0.0, "serving_bulk_p50_s": 0.0, "serving_bulk_p99_s": 0.0,
-    "serving_tenant_latency": {}, "migrations_started": 0, "migrations_completed": 0,
-    "migrations_aborted": 0, "migration_streams": 0,
-}
+def _serving_report(hosts) -> dict:
+    """Admit, shed and wake totals over every host's serving front, the
+    urgent and bulk serving latency percentiles merged across hosts (and
+    per tenant for bulk), and the placement planes' migration ledger with
+    the migration-tagged install streams (bench.py `_serving_report`);
+    zero wherever no front or plane was created."""
+    from .serving import KLASS_BULK, KLASS_URGENT
+
+    admitted = shed = wakes = 0
+    lat = {KLASS_URGENT: Histogram(), KLASS_BULK: Histogram()}
+    per_tenant: Dict[str, Histogram] = {}
+    for nh in hosts.values():
+        front = getattr(nh, "_serving", None)
+        if front is not None:
+            for c in front.admission.counters().values():
+                admitted += sum(c["admitted"].values())
+                shed += sum(c["shed"].values())
+                wakes += c["wakes"]
+        m = getattr(nh, "metrics", None)
+        if m is None:
+            continue
+        for (tid, klass), h in m.histogram_items("serving_latency_seconds"):
+            if klass in lat:
+                lat[klass].merge(h)
+            if klass == KLASS_BULK and h.count:
+                per_tenant.setdefault(str(tid), Histogram()).merge(h)
+    mig = {"started": 0, "completed": 0, "aborted": 0}
+    mig_streams = 0
+    for nh in hosts.values():
+        plane = getattr(nh, "_placement", None)
+        if plane is not None:
+            c = plane.counters()
+            for k in mig:
+                mig[k] += c[f"migrations_{k}"]
+        chunks = getattr(nh, "_chunks", None)
+        if chunks is not None:
+            mig_streams += chunks.stats().get("migration_streams", 0)
+    return {
+        "serving_admitted_total": admitted,
+        "serving_shed_total": shed,
+        "serving_wakes_total": wakes,
+        "serving_urgent_p99_s": round(lat[KLASS_URGENT].quantile(0.99), 6),
+        "serving_bulk_p50_s": round(lat[KLASS_BULK].quantile(0.5), 6),
+        "serving_bulk_p99_s": round(lat[KLASS_BULK].quantile(0.99), 6),
+        "serving_tenant_latency": {
+            tid: {"p50_s": round(h.quantile(0.5), 6), "p99_s": round(h.quantile(0.99), 6)}
+            for tid, h in sorted(per_tenant.items())
+        },
+        "migrations_started": mig["started"],
+        "migrations_completed": mig["completed"],
+        "migrations_aborted": mig["aborted"],
+        "migration_streams": mig_streams,
+    }
 
 
 def _read_report(hosts, reads_done: int, dt: float, read_mode: str) -> dict:
@@ -505,6 +558,10 @@ class _Load:
             if not progressed:
                 time.sleep(0.002)
 
+    def started(self) -> bool:
+        """Every group has had a wave submitted."""
+        return len(self.inflight) == len(self.sessions)
+
     def open_window(self) -> None:
         """Zero the counts at the window's start: waves and reads still in
         flight count when they complete inside it (the reads as submitted
@@ -558,6 +615,141 @@ class _Load:
         for rss in self.read_inflight.values():
             for rs in rss:
                 rs.wait(max(0.0, deadline - time.perf_counter()))
+
+
+class _FrontLoad:
+    """bench.py's through_front load (`_front_measure`, BASELINE config 7)
+    with `_Load`'s interface. Every host gets a serving front (bulk
+    buckets far above capacity: the run measures what the stack admits,
+    not a bucket ceiling), a session manager and a placement plane with no
+    targets whose pacer runs throughout. Tenant t owns the groups
+    c % tenants == t and holds one at-most-once session on its first
+    group's leader host; its worker sends each of its groups in turn a
+    wave of bulk proposals through the leader host's front and waits for
+    the wave, and every 4th round proposes once through its session. The
+    workers run on their own threads from construction until `settle`;
+    `run` only follows the leaders."""
+
+    def __init__(self, hosts, leaders, snap_fn, groups: int, wave: int, cmd: bytes,
+                 tenants: int):
+        from .serving import AdmissionConfig, SessionManager, TenantSpec
+
+        self.leaders, self.snap_fn = leaders, snap_fn
+        self.groups, self.wave, self.cmd, self.tenants = groups, wave, cmd, tenants
+        admission = AdmissionConfig(default=TenantSpec(rate=2_000_000.0, burst=200_000.0))
+        self.fronts = {nid: nh.serving_front(admission=admission) for nid, nh in hosts.items()}
+        self.mgrs = {nid: SessionManager(f) for nid, f in self.fronts.items()}
+        for nh in hosts.values():
+            nh.placement_plane(targets=[]).start()
+        own = {t: [c for c in range(1, groups + 1) if c % tenants == t] for t in range(tenants)}
+        self.owned = {t: cs for t, cs in own.items() if cs}
+        self.sess_cluster = {}
+        for t, cs in self.owned.items():
+            if self.mgrs[leaders[cs[0]]].register(t, cs[0], count=1, timeout_s=30.0):
+                self.sess_cluster[t] = cs[0]
+        self._mu = threading.Lock()
+        self.session_errors = 0
+        self.open_window()
+        self.submitted: set = set()  # groups that have had a wave submitted
+        self._stop = threading.Event()
+        self._workers = [threading.Thread(target=self._tenant_main, args=(t,),
+                                          name=f"tenant-{t}", daemon=True)
+                         for t in self.owned]
+        for w in self._workers:
+            w.start()
+
+    def _tenant_main(self, t: int) -> None:
+        rounds = 0
+        while not self._stop.is_set():
+            for c in self.owned[t]:
+                if self._stop.is_set():
+                    break
+                front = self.fronts[self.leaders[c]]
+                tickets, shed = [], 0
+                for _ in range(self.wave):
+                    try:
+                        tickets.append(front.propose(t, c, self.cmd, 15.0))
+                    except Exception:
+                        shed += 1
+                self.submitted.add(c)
+                admitted = 0
+                for tk in tickets:
+                    # Ticket.wait re-raises the pump's sheds (engine busy,
+                    # inbox overflow): counted, never fatal to the worker
+                    try:
+                        r = tk.wait()
+                    except Exception:
+                        shed += 1
+                        continue
+                    if r is not None and r.completed:
+                        admitted += 1
+                    else:
+                        shed += 1
+                with self._mu:
+                    self.total += admitted
+                    self.dropped += shed
+                    if admitted:
+                        self.committed_groups.add(c)
+            rounds += 1
+            if t in self.sess_cluster and rounds % 4 == 0:
+                # the at-most-once lane: one session proposal through the
+                # same pump, deadline-retried under the same series
+                c = self.sess_cluster[t]
+                try:
+                    self.mgrs[self.leaders[c]].propose(t, c, self.cmd, 10.0)
+                    with self._mu:
+                        self.total += 1
+                except Exception:
+                    with self._mu:
+                        self.session_errors += 1
+
+    def started(self) -> bool:
+        return len(self.submitted) == self.groups
+
+    def run(self, seconds: float) -> None:
+        deadline = time.perf_counter() + seconds
+        while True:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                return
+            time.sleep(min(0.25, left))
+            for c, (lid, _t) in self.snap_fn().items():
+                if lid and c in self.leaders:
+                    self.leaders[c] = lid
+
+    def open_window(self) -> None:
+        """Zero the counts: a wave counts in the window it completes in."""
+        with self._mu:
+            self.total = self.dropped = 0
+            self.committed_groups: set = set()
+
+    def reads_completed(self) -> int:
+        return 0
+
+    def session_report(self) -> dict:
+        """bench.py's session keys; the managers' counts are the run's."""
+        st = {"registered": 0, "proposals": 0, "safe_retries": 0}
+        for m in self.mgrs.values():
+            for k, v in m.stats().items():
+                st[k] = st.get(k, 0) + v
+        return {
+            "workload": "through_front",
+            "session_mode": "sessions",
+            "placement_enabled": True,
+            "tenants": self.tenants,
+            "session_registered_total": st["registered"],
+            "session_proposals_total": st["proposals"],
+            "session_safe_retries_total": st["safe_retries"],
+            "session_errors_total": self.session_errors,
+        }
+
+    def settle(self, timeout_s: float = 30.0) -> None:
+        """Stop the workers; each finishes the wave it waits on (a
+        ticket's deadline is 15 s, a session proposal's 10 s)."""
+        self._stop.set()
+        deadline = time.perf_counter() + timeout_s
+        for w in self._workers:
+            w.join(max(0.0, deadline - time.perf_counter()))
 
 
 def _thread_cpu() -> Dict[str, float]:
@@ -699,6 +891,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
               log_window: int = 256, replicas: int = 3, read_ratio: int = 0,
               read_mode: str = "readindex", drop_rate: float = 0.0,
               churn: bool = False, steps_per_sync: int = 1,
+              through_front: bool = False, tenants: int = 0,
               device: str = "cuda", warmup_s: float = 2.0,
               election_wait_s: Optional[float] = None, profile_s: float = 1.0,
               window_extend_s: float = 15.0,
@@ -720,6 +913,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
     members = {n: f"bench:{n}" for n in range(1, replicas + 1)}
     hosts: Dict[int, NodeHost] = {}
     BenchSM.replicas = {}
+    load = None
     # wall seconds of each part of the run, teardown included
     walls: Dict[str, float] = {}
     lap = [time.perf_counter()]
@@ -807,10 +1001,21 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
         # churn settles and the window opens on waves already in flight
         # (a first wave through thousands of lanes outlasts a short
         # window); the window counts what completes inside it
-        load = _Load(hosts, leaders, snap_fn, wave, b"x" * payload,
-                     read_ratio=read_ratio, churn=churn, replicas=replicas)
+        #
+        # through_front (config 7) sends the waves through each leader
+        # host's serving front with sessions and placement live; bench.py's
+        # through_front branch measures its window and returns, and the
+        # port's harness gives it what every other config has: this
+        # warm-up, the audited window run on until every group committed,
+        # the busy share, the settle, the convergence check and the lincheck
+        if through_front:
+            load = _FrontLoad(hosts, leaders, snap_fn, groups, wave, b"x" * payload,
+                              max(tenants, 1))
+        else:
+            load = _Load(hosts, leaders, snap_fn, wave, b"x" * payload,
+                         read_ratio=read_ratio, churn=churn, replicas=replicas)
         load.run(warmup_s)
-        while len(load.inflight) < len(load.sessions):
+        while not load.started():
             load.run(0.1)  # every group has had a wave submitted
         load.open_window()
         mark("warm")
@@ -826,8 +1031,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
         # a second or more: the window runs on until every group committed
         # a wave inside it, at most window_extend_s
         stop = time.perf_counter() + window_extend_s
-        while (len(load.committed_groups) < len(load.sessions)
-               and time.perf_counter() < stop):
+        while len(load.committed_groups) < groups and time.perf_counter() < stop:
             load.run(0.25)
         dt = time.perf_counter() - t1
         cpu1 = _thread_cpu()
@@ -871,6 +1075,8 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
         if churn:
             out.update(snapshots_requested=load.snapshots,
                        membership_changes=load.membership)
+        if through_front:
+            out.update(load.session_report())
         # the measured window's own seconds per stage (the fold below sums
         # the engine's whole life, bring-up included)
         out["host_stage_window_s"] = {
@@ -880,7 +1086,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
         out.update(attribution)
         out.update(latency_report(hosts))
         out.update(_lane_report(hosts))
-        out.update(SERVING_ZERO)
+        out.update(_serving_report(hosts))
         out.update(_read_report(hosts, reads_done, dt, read_mode))
         out.update(_census_report(hosts))
         if device != "cpu" and profile_s > 0:
@@ -908,6 +1114,8 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
         return out
     finally:
         lap[0] = time.perf_counter()
+        if isinstance(load, _FrontLoad):
+            load.settle(0.0)  # its workers end once the fronts stop
         for nh in hosts.values():
             try:
                 nh.stop()
@@ -939,6 +1147,8 @@ def run_ladder_config(n: int, groups: Optional[int] = None,
                 drop_rate=spec.get("drop_rate", 0.0),
                 churn=spec.get("churn", False),
                 steps_per_sync=spec.get("steps_per_sync", 1),
+                through_front=spec.get("through_front", False),
+                tenants=spec.get("tenants", 0),
                 device=device,
             )
         finally:
@@ -975,6 +1185,7 @@ _GATE_KEYS = (
     "error", "groups_elected", "committed", "reads_completed",
     "lease_reads_local", "converged", "lincheck_ok", "lincheck_errors",
     "out_of_seam_syncs", "out_of_seam_sites", "kernel_builds",
+    "session_registered_total", "session_proposals_total",
 )
 
 
@@ -986,7 +1197,10 @@ def gate_failures(r: dict) -> list:
     RARE_PATH_SYNCS). Configs 3 and 8 completed reads; config 8 served
     reads off the lease in its lease run and none in its ReadIndex run;
     config 4's hook dropped messages; config 5 requested snapshots and
-    membership changes."""
+    membership changes; config 7 registered one session for every tenant
+    that owns a group (every tenant from `tenants` groups up) and proposed
+    through the sessions. Config 7's sheds are reported, not gated: the
+    front sheds bulk traffic under a saturated WAL by design."""
     n = r["config"]
     spec = LADDER[n]
     runs = [("", r)]
@@ -1024,6 +1238,12 @@ def gate_failures(r: dict) -> list:
     if spec.get("churn") and not (r.get("snapshots_requested", 0) > 0
                                   and r.get("membership_changes", 0) > 0):
         bad.append("no snapshot or membership change was requested")
+    if spec.get("through_front") and not r.get("error"):
+        want = min(spec["tenants"], r["actual_groups"])
+        if r.get("session_registered_total") != want:
+            bad.append(f"{r.get('session_registered_total')}/{want} sessions registered")
+        if not r.get("session_proposals_total", 0) > 0:
+            bad.append("nothing was proposed through a session")
     return bad
 
 

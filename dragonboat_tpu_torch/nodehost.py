@@ -863,14 +863,41 @@ class NodeHost(IMessageHandler):
 
     # --------------------------------------------------------- serving front
     def serving_front(self, admission=None, front=None):
-        """The overload-robust ingress for this host (per-tenant admission
-        control + weighted-fair fan-in onto the batched propose path)."""
-        raise NotImplementedError("serving is not ported yet; ROADMAP queue 1")
+        """The overload-robust ingress for this host (serving/front.py):
+        per-tenant admission control + weighted-fair fan-in onto the
+        batched propose path, fed by this host's live backpressure
+        signals. Created lazily, ONE per host (the first call's knobs
+        win); stop() tears it down with the host. Its per-tenant
+        admit/shed/latency ledger exports through write_health_metrics
+        alongside every other gauge."""
+        with self._serving_mu:
+            if self._serving is None:
+                from .serving import ServingFront
+
+                self._serving = ServingFront(
+                    self, admission=admission, front=front
+                )
+            return self._serving
 
     def placement_plane(self, targets=None, config=None):
-        """This host's load-aware placement brain (live migration of hot
-        groups), built on the serving front."""
-        raise NotImplementedError("serving is not ported yet; ROADMAP queue 1")
+        """This host's load-aware placement brain (serving/placement.py):
+        folds the saturation score, per-lane gauges and per-tenant
+        serving histograms into a load model and live-migrates hot
+        groups (leadership transfer + streamed-snapshot member swap) to
+        the given MigrationTargets. Created lazily, ONE per host (the
+        first call's targets/config win); torn down with the host. Its
+        migration ledger exports through write_health_metrics."""
+        # resolve the front FIRST: serving_front() takes _serving_mu too
+        # (non-reentrant), and the plane's constructor needs it
+        front = self.serving_front()
+        with self._serving_mu:
+            if self._placement is None:
+                from .serving import PlacementPlane
+
+                self._placement = PlacementPlane(
+                    self, targets or [], config=config, front=front
+                )
+            return self._placement
 
     def mark_migrating(self, cluster_id: int, active: bool) -> None:
         """Tag/untag a cluster as mid live-migration on this host (both

@@ -10,6 +10,7 @@ one of the port's, at the same tiny config-5 shape, hold the key sets and
 the verdicts against each other."""
 import json
 import tempfile
+import time
 
 import pytest
 import torch
@@ -63,6 +64,11 @@ def bench_record_keys(n: int, ladder: bool = True) -> set:
         keys.add("drop_rate")
     if spec.get("churn"):
         keys |= {"snapshots_requested", "membership_changes"}
+    if spec.get("through_front"):
+        # _front_measure's literal keys (bench.py:808-825)
+        keys |= {"workload", "session_mode", "placement_enabled", "tenants",
+                 "session_registered_total", "session_proposals_total",
+                 "session_safe_retries_total", "session_errors_total"}
     if ladder:
         keys |= LADDER_KEYS
         if spec.get("both_read_modes"):
@@ -71,11 +77,11 @@ def bench_record_keys(n: int, ladder: bool = True) -> set:
 
 
 def test_ladder_holds_bench_shapes():
-    """Configs 1-6 and 8 with bench.py's labels, group counts (nominal and
-    cut), replicas, payloads, waves, windows and traffic."""
+    """Configs 1-8 with bench.py's labels, group counts (nominal and cut),
+    replicas, payloads, waves, windows and traffic."""
     import bench
 
-    assert sorted(e2e.LADDER) == [1, 2, 3, 4, 5, 6, 8]
+    assert sorted(e2e.LADDER) == sorted(bench.LADDER) == [1, 2, 3, 4, 5, 6, 7, 8]
     for n, spec in e2e.LADDER.items():
         ref = bench.LADDER[n]
         assert spec == ref, n
@@ -83,9 +89,10 @@ def test_ladder_holds_bench_shapes():
 
 @pytest.mark.parametrize("config", sorted(e2e.LADDER), ids=lambda c: f"config{c}")
 def test_ladder_config_on_the_cpu(config):
-    """The config's gates, and bench.py's keys for it, at 1-2 groups."""
+    """The config's gates, and bench.py's keys for it, at 1-2 groups
+    (config 7 at 4, one group for each tenant)."""
     spec = e2e.LADDER[config]
-    groups = min(2, spec["groups"])
+    groups = min(max(2, spec.get("tenants", 0)), spec["groups"])
     r = e2e.run_ladder_config(config, groups=groups, duration=1.5, device="cpu")
     assert e2e.gate_failures(r) == [], json.dumps(r, default=str)
     assert r["actual_groups"] == groups and r["scaled_down"] == (groups != spec["nominal_groups"])
@@ -105,14 +112,92 @@ def test_ladder_config_on_the_cpu(config):
         assert r["lease_vs_readindex_reads"] > 0
     if spec.get("churn"):
         assert all(s.rsplit(":", 1)[-1] in e2e.RARE_PATH_SYNCS for s in r["out_of_seam_sites"])
+    if spec.get("through_front"):
+        assert r["workload"] == "through_front" and r["tenants"] == spec["tenants"]
+        assert r["session_registered_total"] == spec["tenants"]
+        assert r["serving_admitted_total"] >= r["committed"] - r["session_proposals_total"] > 0
+        assert set(r["serving_tenant_latency"]) == {str(t) for t in range(spec["tenants"])}
 
 
-def test_serving_fold_is_bench_zero_fold():
-    """The port has no serving front: its record carries bench.py's
-    serving keys with the values bench.py reads off hosts without one."""
+def test_serving_fold_matches_bench():
+    """The port's serving fold against bench.py's: on no hosts, and on
+    live hosts of both packages, each with a serving front that admitted
+    and completed the same proposals and a placement plane with no
+    targets, the same counts and the same keys (latencies are each
+    package's own)."""
     import bench
+    from dragonboat_tpu import nodehost as ref_nodehost
+    from dragonboat_tpu.config import (Config as RConfig, EngineConfig as REngineConfig,
+                                       NodeHostConfig as RNodeHostConfig)
+    from dragonboat_tpu.statemachine import IStateMachine as RSM, Result as RResult
+    from dragonboat_tpu.transport.loopback import _Registry as RReg, loopback_factory as rlf
+    from dragonboat_tpu_torch import nodehost as port_nodehost
+    from dragonboat_tpu_torch.config import Config, EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.statemachine import IStateMachine, Result
+    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
 
-    assert e2e.SERVING_ZERO == bench._serving_report({})
+    assert e2e._serving_report({}) == bench._serving_report({})
+
+    def live(NH, NHC, EC, C, SM, R, Reg, lf, engine):
+        class Counter(SM):
+            def __init__(self, *_):
+                self.n = 0
+
+            def update(self, cmd):
+                self.n += 1
+                return R(value=self.n)
+
+            def lookup(self, q):
+                return self.n
+
+            def save_snapshot(self, w, files, done):
+                w.write(str(self.n).encode())
+
+            def recover_from_snapshot(self, r, files, done):
+                self.n = int(r.read())
+
+        reg = Reg()
+        nh = NH(NHC(deployment_id=3, rtt_millisecond=50, raft_address="sf:1",
+                    raft_rpc_factory=lambda a: lf(a, reg), engine=engine(EC)))
+        try:
+            nh.start_cluster({1: "sf:1"}, False, Counter,
+                             C(cluster_id=9, node_id=1, election_rtt=10, heartbeat_rtt=2))
+            deadline = time.monotonic() + 30
+            while not nh.get_leader_id(9)[1] and time.monotonic() < deadline:
+                time.sleep(0.02)
+            front = nh.serving_front()
+            nh.placement_plane(targets=[])
+            for t in (1, 2):
+                for tk in [front.propose(t, 9, b"x", 20.0) for _ in range(3 * t)]:
+                    assert tk.wait().completed
+            return nh, front
+
+        except BaseException:
+            nh.stop()
+            raise
+
+    ref_nh, _ = live(ref_nodehost.NodeHost, RNodeHostConfig, REngineConfig, RConfig, RSM,
+                     RResult, RReg, rlf, lambda E: E(kind="vector", max_groups=8, max_peers=4,
+                                                     log_window=64))
+    try:
+        port_nh, _ = live(port_nodehost.NodeHost, NodeHostConfig, EngineConfig, Config,
+                          IStateMachine, Result, _Registry, loopback_factory,
+                          lambda E: E(kind="vector", max_groups=8, max_peers=4, log_window=64,
+                                      device="cpu"))
+        try:
+            ref, port = bench._serving_report({1: ref_nh}), e2e._serving_report({1: port_nh})
+        finally:
+            port_nh.stop()
+    finally:
+        ref_nh.stop()
+    assert set(port) == set(ref)
+    assert set(port["serving_tenant_latency"]) == set(ref["serving_tenant_latency"]) == {"1", "2"}
+    for k in ("serving_admitted_total", "serving_shed_total", "serving_wakes_total",
+              "migrations_started", "migrations_completed", "migrations_aborted",
+              "migration_streams"):
+        assert port[k] == ref[k], k
+    assert port["serving_admitted_total"] == 9
+    assert port["serving_bulk_p99_s"] >= port["serving_bulk_p50_s"] > 0
 
 
 def test_drop_hook_keeps_the_decode_pipelined(monkeypatch):
@@ -152,6 +237,13 @@ def test_gates_catch_a_failed_run():
     assert e2e.gate_failures(dict(lease, lease_reads_local=0))
     assert e2e.gate_failures(dict(lease, readindex_run=dict(lease, lease_reads_local=1)))
     assert e2e.gate_failures(dict(ok, error="2 groups never elected"))
+    front = dict(ok, config=7, actual_groups=64, groups_elected=64, out_of_seam_sites={},
+                 out_of_seam_syncs=0, session_registered_total=4, session_proposals_total=3)
+    assert e2e.gate_failures(front) == []
+    assert e2e.gate_failures(dict(front, session_registered_total=3))
+    assert e2e.gate_failures(dict(front, session_proposals_total=0))
+    assert e2e.gate_failures(dict(front, actual_groups=2, groups_elected=2,
+                                  session_registered_total=2)) == []
 
 
 def test_main_defaults_to_the_nominal_width(monkeypatch, capsys):
@@ -165,10 +257,12 @@ def test_main_defaults_to_the_nominal_width(monkeypatch, capsys):
     assert e2e.main(["--config", "3"]) == 1  # a failed gate fails the run
     assert e2e.main(["--config", "5", "--device", "cpu", "--groups", "4",
                      "--duration", "3"]) == 1
-    assert seen == [(3, 10_000, None, "cuda"), (5, 4, 3.0, "cpu")]
+    assert e2e.main(["--config", "7", "--device", "cpu", "--groups", "4",
+                     "--duration", "3"]) == 1
+    assert seen == [(3, 10_000, None, "cuda"), (5, 4, 3.0, "cpu"), (7, 4, 3.0, "cpu")]
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["gate_failures"]
     with pytest.raises(SystemExit):
-        e2e.main(["--config", "7"])
+        e2e.main(["--config", "9"])
 
 
 def test_config5_against_bench(tmp_path):

@@ -1,6 +1,7 @@
 """The port keeps its own copies of the JAX package's host modules (types,
 codec, settings, raftio, the scalar core, storage, transport, rsm, engine
-host pieces, lincheck): they must agree with the reference. The port's
+host pieces, lincheck, the fault plane, the fuzzer, the serving plane):
+they must agree with the reference. The port's
 codec encodes seeded message batches, entries, snapshots, chunks and
 bootstrap records to exactly the reference's bytes, and each decodes the
 other's; the enum and constant tables are equal; and no copied module's
@@ -35,6 +36,9 @@ COPIED = (
     "engine.queue", "engine.quiesce", "engine.fairness",
     "engine.snapshotstate", "engine.snapshotter", "engine.node",
     "engine.execengine", "engine",
+    "faults", "fuzz",
+    "serving.retry", "serving.admission", "serving.backpressure", "serving.front",
+    "serving.sessions", "serving.placement", "serving.storm", "serving",
 )
 
 
@@ -87,6 +91,14 @@ def test_copy_keeps_the_reference_code(name):
 PER_PROCESS = {"_TRACE_SALT"}
 
 
+def _in_package(v):
+    """A class of either package by its module path inside the package
+    (a constant tuple of exception classes names the package's own)."""
+    if isinstance(v, type) and v.__module__.startswith("dragonboat_tpu"):
+        return (v.__module__.split(".", 1)[-1], v.__qualname__)
+    return v
+
+
 def enums_and_constants(mod):
     out = {}
     for k, v in vars(mod).items():
@@ -94,7 +106,9 @@ def enums_and_constants(mod):
             continue
         if isinstance(v, type) and issubclass(v, enum.Enum) and v.__module__ == mod.__name__:
             out[k] = [(m.name, m.value) for m in v]
-        elif k.isupper() and isinstance(v, (int, str, bytes, float, tuple, frozenset)):
+        elif k.isupper() and isinstance(v, tuple):
+            out[k] = tuple(_in_package(x) for x in v)
+        elif k.isupper() and isinstance(v, (int, str, bytes, float, frozenset)):
             out[k] = v
     return out
 
