@@ -31,10 +31,17 @@ membership changes and sessions, and the kernels each path launched; it
 also times lane activation. Phase 6 puts the fault plane on the card:
 one seed of the chaos matrix (3 hosts on one core, 30% of replication
 dropped, seeded partitions; converged and linearizable) and the overload
-storm's graceful-degradation verdict on one group. After each K=1
-engine run of phases 5-6 the step kernel is held against its plain
-version on states that run stepped, at its own lanes, window and inbox
-depth. It exits non-zero, printing no result, when no CUDA device is
+storm's graceful-degradation verdict on one group. Phase 7 runs the
+operator tools against live NodeHosts at config 2's width (3 hosts x
+1024 groups on one core): tools.top collects from the serving hosts and
+one group's snapshot is exported; after stop logdbcheck, checkdisk,
+timeline and doctor read what they left; tools.importer repairs the
+exported group as a one-member group on the card, which reads back
+every acknowledged write; then tools.perfdiff, tools.check over the port
+and the helloworld example. After each K=1 engine run of phases 5-7 the
+step kernel is held against its plain version on states that run
+stepped, at its own lanes, window and inbox depth. It exits non-zero,
+printing no result, when no CUDA device is
 present or any phase fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1248,6 +1255,318 @@ def phase_faults(cuda, K, device="cuda"):
     return out
 
 
+# ------------------------------ phase 7: the operator tools on the card
+
+# config 2's width: 3 hosts x 1024 groups on one core, K=1
+TOOLS_GROUPS = 1024
+TOOLS_SERVE_S = 4.0
+TOOLS_CLUSTER = 1  # the group whose snapshot is exported and imported
+
+
+def _tools_nh_config(nid, reg, nh_dir, groups, device):
+    """The NodeHostConfig of a tools-phase host: config 2's engine shape
+    (the e2e harness's: W=256, inbox 4, 64 entries per message) on one
+    core shared by the hosts of `reg`, with 3 x `groups` lanes."""
+    from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.transport.loopback import loopback_factory
+
+    return NodeHostConfig(
+        raft_address=f"tools:{nid}", rtt_millisecond=10, nodehost_dir=nh_dir,
+        raft_rpc_factory=lambda a: loopback_factory(a, reg),
+        engine=EngineConfig(kind="vector", max_groups=max(4, 3 * groups), max_peers=4,
+                            log_window=256, inbox_depth=4, max_entries_per_msg=64,
+                            share_scope=f"tools-{id(reg)}", device=device))
+
+
+def _tools_config(nid, cid):
+    from dragonboat_tpu_torch.config import Config
+
+    # e2e's timers: 10 ms ticks x 300 election RTT, 30-tick heartbeats
+    return Config(node_id=nid, cluster_id=cid, election_rtt=300, heartbeat_rtt=30)
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output captured; (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def phase_tools(cuda, K, record, device="cuda", groups=TOOLS_GROUPS):
+    """Phase 7: the port's operator tools against live NodeHosts at config
+    2's width (3 hosts x `groups` groups on one core, K=1), with the
+    flight recorder teed into an mmap ring and a history sampler per host.
+    While the hosts serve proposals (e2e's pipelined waves on every group,
+    and acknowledged `kv:` writes on group TOOLS_CLUSTER): tools.top
+    collects from the live hosts (one row per lane, no doubles, a census
+    read from the engine's tensors) and one group's snapshot is exported.
+    After stop: tools.logdbcheck over every group's three replicas,
+    tools.checkdisk on the workdir, tools.timeline merging the three
+    history rings and the flight ring, tools.doctor on a bundle of them.
+    Then the quorum repair: tools.importer imports the export with a
+    one-member membership into a fresh dir, that host starts on `device`,
+    every acknowledged write of the group reads back and a new proposal
+    commits. Then tools.perfdiff (`record`, a phase-5 e2e config record,
+    against itself: pass; against the JAX package's fixture: refused,
+    exit 2), tools.check on the port (0 findings) and the helloworld
+    example. Each engine part runs under its own StepRecorder, with the
+    counts zeroed before it; on the card each must launch the step kernel
+    and never the plain step, and the kernel is held against its plain
+    version at the shape the part ran. Returns the phase's report."""
+    import os
+    import statistics
+    import tempfile
+    import threading
+
+    from dragonboat_tpu_torch import e2e
+    from dragonboat_tpu_torch.examples import helloworld
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.profile import read_history
+    from dragonboat_tpu_torch.storage.logdb import ShardedLogDB
+    from dragonboat_tpu_torch.tools import check, doctor, perfdiff, timeline, top
+    from dragonboat_tpu_torch.tools.checkdisk import check_disk
+    from dragonboat_tpu_torch.tools.importer import import_snapshot
+    from dragonboat_tpu_torch.tools.logdbcheck import check_logdb_consistency
+    from dragonboat_tpu_torch.trace import flight_recorder
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    t_phase = time.perf_counter()
+    walls = {}
+    lap = [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        walls[name] = round(now - lap[0], 3)
+        lap[0] = now
+
+    def part(name, rec, seed):
+        """Read the part's counts, then (on the card) hold the kernel."""
+        r = {"launches": dict(cuda.LAUNCHES), "plain_step_calls": K.REFERENCE_CALLS["step_batch"]}
+        if device == "cuda":
+            assert r["plain_step_calls"] == 0, f"tools {name}: the engine ran the plain step"
+            assert r["launches"]["step_batch"] > 0, f"tools {name}: the step kernel never launched"
+            r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, seed)
+        return r
+
+    def zero():
+        for k in cuda.LAUNCHES:
+            cuda.LAUNCHES[k] = 0
+        K.REFERENCE_CALLS["step_batch"] = 0
+
+    out = {"groups": groups, "lanes": 3 * groups}
+    members = {n: f"tools:{n}" for n in (1, 2, 3)}
+    with tempfile.TemporaryDirectory(prefix="dbtorch-tools-") as wd:
+        ring = os.path.join(wd, "flight.ring")
+        flight_recorder().attach_mmap(ring)
+        reg = _Registry()
+        hosts = {}
+        e2e.BenchSM.replicas = {}
+        zero()
+        try:
+            with StepRecorder(K) as rec:
+                for nid in members:
+                    hosts[nid] = NodeHost(_tools_nh_config(
+                        nid, reg, os.path.join(wd, f"h{nid}"), groups, device))
+                for nid, nh in hosts.items():
+                    nh.start_clusters([(dict(members), False, e2e.BenchSM, _tools_config(nid, c))
+                                       for c in range(1, groups + 1)])
+                mark("hosts")
+                snap_fn = hosts[1].engine.leader_snapshot
+                leaders, deadline = {}, time.monotonic() + 180
+                while len(leaders) < groups and time.monotonic() < deadline:
+                    leaders.update((c, lid) for c, (lid, _t) in snap_fn().items() if lid)
+                    time.sleep(0.05)
+                assert len(leaders) == groups, f"tools: {groups - len(leaders)} groups never elected"
+                mark("elect")
+                # the samplers attach to the serving fleet (from bring-up,
+                # the lane count's climb reads as doctor's lane_leak)
+                hist = [nh.start_history(interval_s=0.25) for nh in hosts.values()]
+                load = e2e._Load(hosts, dict(leaders), snap_fn, wave=8, cmd=b"x" * 16)
+                loader = threading.Thread(target=load.run, args=(TOOLS_SERVE_S,), daemon=True)
+                loader.start()
+                lead = hosts[leaders[TOOLS_CLUSTER]]
+                sess = lead.get_noop_session(TOOLS_CLUSTER)
+                acked, collect_ms, snaps = {}, [], []
+                t_end = time.monotonic() + TOOLS_SERVE_S
+                i = 0
+                while time.monotonic() < t_end or len(snaps) < 3:
+                    # a round of 16 writes in flight on the group, a top
+                    # collect while they commit, then their acks
+                    round_ = [(f"k{j}", f"v{j}", lead.propose(
+                        sess, f"kv:k{j}=v{j}".encode(), 60.0)) for j in range(i, i + 16)]
+                    i += 16
+                    t = time.perf_counter()
+                    snaps.append(top.collect_snapshot(hosts))
+                    collect_ms.append((time.perf_counter() - t) * 1e3)
+                    for k, v, rs in round_:
+                        if rs.wait(90.0).completed:
+                            acked[k] = v
+                loader.join(timeout=120)
+                assert not loader.is_alive(), "tools: the load never finished"
+                mark("serve")
+                snap = snaps[-1]
+                keys = [(r["host"], r["cluster_id"]) for r in snap["lanes"]]
+                assert len(keys) == 3 * groups and len(set(keys)) == len(keys), (
+                    f"top: {len(keys)} rows, {len(set(keys))} distinct, want {3 * groups}")
+                hbm = snap["census"].get("hbm_bytes_total", 0)
+                assert hbm > 0, f"top: census {snap['census']}"
+                ranked = top.rank_lanes(snap, prev=snaps[-2])
+                _, rendered = _quiet(top.render, snap)
+                out["top"] = {
+                    "rows": len(keys), "hbm_bytes_total": hbm,
+                    "collect_ms_median": statistics.median(collect_ms),
+                    "collect_ms_max": max(collect_ms), "collects": len(collect_ms),
+                    "hottest": {k: ranked[0][k] for k in ("host", "cluster_id", "heat",
+                                                         "ingest_rate")},
+                    "header": rendered.splitlines()[:2],
+                }
+                export = os.path.join(wd, "export")
+                os.makedirs(export)
+                lead.sync_request_snapshot(TOOLS_CLUSTER, export_path=export, timeout_s=60.0)
+                (src,) = [os.path.join(export, d) for d in os.listdir(export)]
+                out["load"] = {"proposals_committed": load.total, "dropped": load.dropped,
+                               "acked_writes": len(acked)}
+                bundle = os.path.join(wd, "bundle")
+                os.makedirs(bundle)
+                with open(os.path.join(bundle, "top_snapshot.json"), "w") as f:
+                    json.dump(snap, f)
+                hosts[1].dump_flight(os.path.join(bundle, "flight_dump.jsonl"))
+                for nh in hosts.values():
+                    nh.stop()
+                hosts = {}
+                mark("export_stop")
+            out["hosts"] = part("hosts", rec, SS_SEED + 70)
+            costs = [h.stats() for h in hist]
+            out["history"] = {
+                "samplers": len(costs),
+                "samples_total": sum(c["samples_total"] for c in costs),
+                "errors_total": sum(c["errors_total"] for c in costs),
+                "sample_cost_seconds_total": sum(c["sample_cost_seconds_total"] for c in costs),
+                "sample_cost_ms_mean": 1e3 * sum(c["sample_cost_seconds_total"] for c in costs)
+                / max(1, sum(c["samples_total"] for c in costs)),
+                "lanes_per_sampler": groups,
+            }
+            mark("compare")
+
+            # ---- after stop: logdbcheck, checkdisk, timeline, doctor ----
+            dbs = {nid: ShardedLogDB(os.path.join(wd, f"h{nid}", f"tools-{nid}", "logdb"))
+                   for nid in members}
+            try:
+                bad = {}
+                for c in range(1, groups + 1):
+                    rep = check_logdb_consistency(dbs, c)
+                    if not rep.ok or len(rep.replicas) != 3:
+                        bad[c] = rep.violations or f"{len(rep.replicas)} replicas"
+                assert not bad, f"logdbcheck: {dict(list(bad.items())[:4])}"
+            finally:
+                for db in dbs.values():
+                    db.close()
+            out["logdbcheck"] = {"groups": groups, "replicas": 3, "violations": 0}
+            mark("logdbcheck")
+            out["checkdisk"] = check_disk(wd, count=50)
+            rings = timeline.sweep_artifacts(wd)
+            rc, text = _quiet(timeline.main, ["--sweep", wd, "--json"])
+            assert rc == 0, "timeline failed"
+            evs = [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+            hist_hosts = {e.get("host") for e in evs if e.get("event") == "history_sample"}
+            assert len(hist_hosts) == 3, f"timeline merged history of {hist_hosts}"
+            assert sum(r.endswith("history.ring") for r in rings) == 3, rings
+            assert all(a["_tw"] <= b["_tw"] for a, b in zip(evs, evs[1:])), "timeline order"
+            out["timeline"] = {"artifacts": len(rings), "events": len(evs),
+                               "history_hosts": sorted(map(str, hist_hosts)),
+                               "span_s": round(evs[-1]["_tw"] - evs[0]["_tw"], 3)}
+            with open(os.path.join(bundle, "history.jsonl"), "w") as f:
+                for nid in members:
+                    for smp in read_history(os.path.join(wd, f"h{nid}", f"tools-{nid}",
+                                                         "history.ring"))[1]:
+                        f.write(json.dumps(smp) + "\n")
+            rc, text = _quiet(doctor.main, [bundle, "--json"])
+            assert rc == 0, "doctor failed"
+            report = json.loads(text)
+            assert report["samples"] > 0 and len(report["hosts"]) == 3, report
+            assert all(v["kind"] in doctor.SEVERITY for v in report["verdicts"]), report
+            out["doctor"] = {"samples": report["samples"], "hosts": report["hosts"],
+                             "window_s": report["window_s"],
+                             "verdicts": [v["kind"] for v in report["verdicts"]]}
+            mark("tools_after_stop")
+
+            # ---- quorum repair: import the export into a fresh dir ----
+            zero()
+            with StepRecorder(K) as rec:
+                ncfg = _tools_nh_config(1, _Registry(), os.path.join(wd, "repair"), 1, device)
+                ss = import_snapshot(ncfg, src, {1: members[1]}, 1)
+                assert ss.imported and set(ss.membership.addresses) == {1}, ss.membership
+                nh = NodeHost(ncfg)
+                try:
+                    nh.start_cluster({}, False, e2e.BenchSM, _tools_config(1, TOOLS_CLUSTER))
+                    deadline = time.monotonic() + 60
+                    while nh.get_leader_id(TOOLS_CLUSTER) != (1, True):
+                        assert time.monotonic() < deadline, "repaired host never led"
+                        time.sleep(0.02)
+                    wrong = {k: v for k, v in acked.items()
+                             if nh.sync_read(TOOLS_CLUSTER, k, timeout_s=30.0) != v}
+                    assert not wrong, f"importer: {len(wrong)} acknowledged writes lost"
+                    nh.sync_propose(nh.get_noop_session(TOOLS_CLUSTER), b"kv:post=repair",
+                                    timeout_s=30.0)
+                    assert nh.sync_read(TOOLS_CLUSTER, "post", timeout_s=30.0) == "repair"
+                    members_after = sorted(nh.get_cluster_membership(TOOLS_CLUSTER).addresses)
+                finally:
+                    nh.stop()
+            out["importer"] = {"snapshot_index": ss.index, "acked_read_back": len(acked),
+                               "members": members_after, **part("importer", rec, SS_SEED + 71)}
+            mark("importer")
+        finally:
+            for nh in hosts.values():
+                nh.stop()
+            flight_recorder().detach_mmap()
+
+        # ---- perfdiff: the phase-5 record against itself, and against
+        # the JAX package's fixture (no backend stamp: refused) ----
+        rec_path = os.path.join(wd, "e2e_config2.json")
+        with open(rec_path, "w") as f:
+            json.dump(e2e.bench_record({2: record}), f, default=str)
+        here = os.path.dirname(os.path.abspath(__file__))
+        base = os.path.join(here, "tests", "data", "perfdiff_base.json")
+        rc_self, text = _quiet(perfdiff.main, [rec_path, rec_path, "--gate", "--json"])
+        assert rc_self == 0 and json.loads(text)["verdict"] == "pass", text
+        rc_ref, text = _quiet(perfdiff.main, [base, rec_path, "--gate", "--json"])
+        assert rc_ref == 2 and json.loads(text)["verdict"] == "incomparable", text
+        ref_reasons = json.loads(text).get("reasons")
+        # the same record with its backend stamp removed: refused by the
+        # backend rule alone (one side stamped)
+        unstamped = os.path.join(wd, "e2e_config2_unstamped.json")
+        with open(unstamped, "w") as f:
+            json.dump({k: v for k, v in e2e.bench_record({2: record}).items()
+                       if k != "backend"}, f, default=str)
+        rc_bk, text = _quiet(perfdiff.main, [unstamped, rec_path, "--gate", "--json"])
+        assert rc_bk == 2 and "backend" in json.loads(text)["reasons"][0], text
+        out["perfdiff"] = {"self_rc": rc_self, "vs_jax_fixture_rc": rc_ref,
+                           "vs_jax_fixture_reasons": ref_reasons, "unstamped_rc": rc_bk}
+        mark("perfdiff")
+
+        # ---- the static analyzer over the port ----
+        rc, text = _quiet(check.main, [])
+        assert rc == 0 and " 0 finding(s)" in text, text
+        out["check"] = text.strip().splitlines()[-1]
+        mark("check")
+
+        # ---- helloworld: real TCP, 3 hosts, election to restart ----
+        zero()
+        with StepRecorder(K) as rec:
+            rc, text = _quiet(helloworld.main, ["--device", device, "--data",
+                                                os.path.join(wd, "helloworld")])
+        assert rc == 0 and "HELLOWORLD PASS" in text, text[-2000:]
+        out["helloworld"] = part("helloworld", rec, SS_SEED + 72)
+        mark("helloworld")
+    out["wall_s"] = walls
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1390,11 +1709,22 @@ def main() -> int:
 
     # ---- phase 6: the fault plane on the card ----
     faults = phase_faults(cuda, K)
+
+    # ---- phase 7: the operator tools against live NodeHosts ----
+    tools = phase_tools(cuda, K, engines[2][0])
+    log(f"tools: {json.dumps(tools, default=str)}")
+    log(f"tools @ {tools['lanes']} lanes: top collect {tools['top']['collect_ms_median']:.3f} ms "
+        f"median ({tools['top']['collects']} collects, max {tools['top']['collect_ms_max']:.3f} "
+        f"ms), history sample {tools['history']['sample_cost_ms_mean']:.3f} ms mean over "
+        f"{tools['history']['samples_total']} samples ({tools['history']['lanes_per_sampler']} "
+        f"lanes per sampler), phase {tools['seconds']} s [{card}]")
     # the step kernel against its plain version at the shapes the engine
     # ran in phases 5 and 6 (each already failed on a mismatch)
     shapes = {f"config{c}": r["kernel_vs_plain"] for c, (r, _) in engines.items()
               if "kernel_vs_plain" in r}
     shapes.update({f"faults_{n}": f["kernel_vs_plain"] for n, f in faults.items()})
+    shapes.update({f"tools_{n}": tools[n]["kernel_vs_plain"]
+                   for n in ("hosts", "importer", "helloworld")})
     cases += sum(v["cases"] for v in shapes.values())
     err = max([err] + [v["max_abs_err"] for v in shapes.values()])
     # engine steps of the whole run (config 8: both of its runs)
@@ -1432,6 +1762,8 @@ def main() -> int:
                       **nk["step_batch"]},
         "engine": per_step("step_batch"),
         "faults": {n: f["launches"]["step_batch"] for n, f in faults.items()},
+        "tools": {n: tools[n]["launches"]["step_batch"]
+                  for n in ("hosts", "importer", "helloworld")},
         "engine_shapes": shapes,
         "ptxas": ptxas["step_batch_kernel"],
         "frame_bytes": frames,
@@ -1469,6 +1801,8 @@ def main() -> int:
     kernels["faults"] = {n: {k: v for k, v in f.items()
                              if k not in ("launches", "kernel_vs_plain")}
                          for n, f in faults.items()}
+    kernels["tools"] = {k: v for k, v in tools.items()
+                        if k not in ("hosts", "importer", "helloworld")}
     log(f"card: {card_line()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

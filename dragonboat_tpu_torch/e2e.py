@@ -1247,6 +1247,20 @@ def gate_failures(r: dict) -> list:
     return bad
 
 
+def bench_record(records: Dict[int, dict]) -> dict:
+    """bench.py's record shape around config records of this harness, so
+    `tools.perfdiff` compares them: the configs keyed by number, and the
+    host and backend stamps lifted to the record level, where perfdiff's
+    stamp rules read them."""
+    first = next(iter(records.values()))
+    return {
+        "metric": "e2e_proposals_per_sec",
+        "backend": first.get("backend", "torch"),
+        "host": first.get("host"),
+        "configs": {str(n): r for n, r in sorted(records.items())},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", type=int, choices=sorted(LADDER), default=2)

@@ -1867,6 +1867,9 @@ class VectorEngine:
         if self._cuda:
             slot.bytes.copy_(self._dev_out.bytes, non_blocking=True)
             ev = torch.cuda.Event()
+            # lint: allow(telemetry/unguarded) torch.cuda.Event.record, not
+            # telemetry: one marker enqueued on the stream per step, the
+            # event the fetch seam waits on
             ev.record(self._stream)
             return slot, ev
         for f, t in zip(StepOutput._fields, out):
@@ -1888,6 +1891,8 @@ class VectorEngine:
         ev = None
         if nb:
             ev = torch.cuda.Event()
+            # lint: allow(telemetry/unguarded) torch.cuda.Event.record, not
+            # telemetry: one marker per super-step, the fetch seam's event
             ev.record(self._stream)
         return slot, ev
 
@@ -4171,22 +4176,16 @@ class VectorEngine:
         totals = self._ctr.sum(axis=0)
         return {name: int(totals[i]) for i, name in enumerate(CTR_NAMES)}
 
-    def lane_counters(self) -> Dict[tuple, Dict[str, int]]:
+    def lane_counters(self, host: Optional[int] = None) -> Dict[tuple, Dict[str, int]]:
         """Per-lane cumulative event counters (lane key -> CTR_NAMES
         dict), same sourcing as counter_stats. Joined with lane_stats on
-        the lane key by tools.top's heat ranking."""
-        out: Dict[tuple, Dict[str, int]] = {}
-        with self._lanes_mu:
-            lanes = list(self._lanes.values())
-        ctr = self._ctr
-        for lane in lanes:
-            if not lane.active:
-                continue
-            row = ctr[lane.g]
-            out[lane.key] = {
-                name: int(row[i]) for i, name in enumerate(CTR_NAMES)
-            }
-        return out
+        the lane key by tools.top's heat ranking. With `host`, only that
+        co-hosted NodeHost's lanes, in one gather (as lane_stats)."""
+        lanes, gs = self._active_lanes(host)
+        return {
+            lane.key: dict(zip(CTR_NAMES, row))
+            for lane, row in zip(lanes, self._ctr[gs].tolist())
+        }
 
     def device_census(self) -> dict:
         """Device memory census snapshot: static plane bytes (reported once at
@@ -4473,9 +4472,7 @@ class VectorEngineHandle:
         """cluster_id -> cumulative event counters for this host's
         lanes (see VectorEngine.lane_counters)."""
         return {
-            key[1]: v
-            for key, v in self.core.lane_counters().items()
-            if key[0] == self.host
+            key[1]: v for key, v in self.core.lane_counters(self.host).items()
         }
 
     def hot_lane_stats(self, k: int) -> Tuple[Dict[int, dict], int]:

@@ -482,7 +482,8 @@ class DeviceCensus:
 
 class CompileWatch:
     """Kernel-build accounting: a listener on ``ops/cuda.build_kernels``
-    counts every nvcc build (and its seconds), and callables registered
+    counts every nvcc build (and its seconds) in ``total`` and per source
+    in ``per_function`` (``build:<source>``), and callables registered
     by their owners that expose ``_cache_size()`` report it per function.
     ``install()`` is idempotent and costs nothing per step: the listener
     runs only when a build runs."""
@@ -492,6 +493,7 @@ class CompileWatch:
         self.total = 0
         self.total_s = 0.0
         self._fns: Dict[str, list] = {}
+        self._builds: Dict[str, int] = {}
         self.installed = False
 
     def install(self) -> "CompileWatch":
@@ -503,6 +505,8 @@ class CompileWatch:
             with self._mu:
                 self.total += 1
                 self.total_s += duration
+                key = "build:" + src
+                self._builds[key] = self._builds.get(key, 0) + 1
 
         cuda.BUILD_LISTENERS.append(_on_build)
         self.installed = True
@@ -532,7 +536,7 @@ class CompileWatch:
     def per_function(self) -> Dict[str, int]:
         with self._mu:
             items = {k: list(v) for k, v in self._fns.items()}
-        out: Dict[str, int] = {}
+            out: Dict[str, int] = dict(self._builds)
         dead: Dict[str, list] = {}
         for name, refs in sorted(items.items()):
             n = 0

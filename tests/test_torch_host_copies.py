@@ -1,6 +1,8 @@
 """The port keeps its own copies of the JAX package's host modules (types,
 codec, settings, raftio, the scalar core, storage, transport, rsm, engine
-host pieces, lincheck, the fault plane, the fuzzer, the serving plane):
+host pieces, lincheck, the fault plane, the fuzzer, the serving plane,
+the operator tools that read no port-specific surface, the analyzer's
+call graph):
 they must agree with the reference. The port's
 codec encodes seeded message batches, entries, snapshots, chunks and
 bootstrap records to exactly the reference's bytes, and each decodes the
@@ -39,6 +41,8 @@ COPIED = (
     "faults", "fuzz",
     "serving.retry", "serving.admission", "serving.backpressure", "serving.front",
     "serving.sessions", "serving.placement", "serving.storm", "serving",
+    "tools.checkdisk", "tools.logdbcheck", "tools.importer", "tools",
+    "analysis.callgraph",
 )
 
 
