@@ -38,9 +38,27 @@ one group's snapshot is exported; after stop logdbcheck, checkdisk,
 timeline and doctor read what they left; tools.importer repairs the
 exported group as a one-member group on the card, which reads back
 every acknowledged write; then tools.perfdiff, tools.check over the port
-and the helloworld example. After each K=1 engine run of phases 5-7 the
-step kernel is held against its plain version on states that run
-stepped, at its own lanes, window and inbox depth. It exits non-zero,
+and the helloworld example. Phase 8 runs tools.longhaul on the vector
+engine on the card at the runner's own shape (3 hosts and a churn host,
+32 lanes each): a seed-rotated run over the whole scenario mix (crash and
+restart with torn WAL tails, partitions, drops, fsync stalls, membership,
+observer and witness churn, transfers, snapshots, overload, pre-vote
+rejoin storms, streamed installs under crash, live rebalance, lease reads
+under clock chaos), a round at K=8 on the on-device router, the rebalance
+and rejoin families, and an injected failure whose forensic bundle must
+be complete; every other round must pass every verdict (lincheck,
+convergence, Log Matching, fairness), the preflight tools.check must
+find nothing, and each round's schedule signature must be the one the
+JAX package's runner draws for its seed. Phase 9 runs config 2's width
+with every host's log over the native WAL store (NativeWalKV) and every
+group's state machine the C++ KV plugin: elected, linearizable, every
+group's replicas at one C++ SM hash; then the on-disk C++ plugin's
+restart and the C embedding ABI's two demo applications, linked against
+the port's own libdbtpu.so, with their NodeHosts on the card. After
+each K=1 engine run of phases 5-9 the step kernel is held against its
+plain version on states that run stepped, at its own lanes, window and
+inbox depth, and after phase 8's K=8 round the kernel super-step (step
+and router kernels) against the plain one. It exits non-zero,
 printing no result, when no CUDA device is
 present or any phase fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1567,6 +1585,546 @@ def phase_tools(cuda, K, record, device="cuda", groups=TOOLS_GROUPS):
     return out
 
 
+# --------------------------------- phase 8: the long-haul soak on the card
+
+# tools.longhaul's own shape (3 hosts and the churn host, 32 lanes each,
+# P=4, W=64, 5 ms ticks) on the vector engine: a seed-rotated run over the
+# whole scenario mix at K=1, one round at K=8 on the on-device router, the
+# rebalance scenario, the rejoin family (tests/test_chaos_matrix.py's
+# seeds) and a round whose failure is injected. A round's seed, scenarios
+# and round_s fix its orchestration schedule, so its signature is a
+# constant: tests/test_torch_longhaul_cross.py derives each from the JAX
+# package's longhaul on its scalar engine
+LONGHAUL_ROUNDS = (
+    ("k1", dict(rounds_max=2, round_s=7.2, rotate=True, seed=0xBEEF)),
+    ("k8", dict(rounds_max=1, round_s=6.0, seed=0xD0C5, scenarios=("partition", "drop", "none"),
+                steps_per_sync=8, shard_over_mesh=True)),
+    ("rebalance", dict(rounds_max=1, round_s=5.0, seed=0x5EED14,
+                       scenarios=("rebalance_under_load", "none"))),
+    ("rejoin", dict(rounds_max=1, round_s=6.0, seed=0x5EED13,
+                    scenarios=("observer_witness_churn", "prevote_rejoin_storm",
+                               "streamed_install_under_crash", "none"))),
+    ("injected", dict(rounds_max=1, round_s=3.0, seed=0xF00D, inject_failure=True)),
+)
+LONGHAUL_SIGNATURES = {
+    "k1": ("4da1e7490f7e7186", "3cfebc0168018314"),
+    "k8": ("cdc2992b9c4fae48",),
+    "rebalance": ("edf4468d689360c3",),
+    "rejoin": ("12a750b56ab9fda9",),
+    "injected": ("6f730c3c085cfca7",),
+}
+# the kernels each round's engine must launch on the card
+LONGHAUL_KERNELS = {1: ("step_batch",),
+                    8: ("step_batch", "route_columns", "route_index", "route_scatter")}
+
+
+class SuperstepRecorder:
+    """While entered, every vector engine built inside it wraps its K-step
+    super-step (engine/vector.py's make_multi_step_fn) to keep copies of
+    the super-step's inputs (state, inbox, ticks, residual inbox, route and
+    delta planes) as StepRecorder keeps the step's: clones on the engine's
+    stream, one call in 4, halved when 6 are held. For holding the kernel
+    super-step (step and router kernels) against the plain one
+    afterwards at the shape the engine ran."""
+
+    def __init__(self, K):
+        self.K, self.keep, self.every, self.calls, self.kept = K, 3, 4, 0, []
+
+    def __enter__(self):
+        from dragonboat_tpu_torch.engine import vector
+
+        self._vector, self._inner = vector, vector.make_multi_step_fn
+        clone = self.K.clone_state
+
+        def make(cfg, steps, *args, **kwargs):
+            fn = self._inner(cfg, steps, *args, **kwargs)
+
+            def multi_step(s, inbox, ticks, resid, route, rdelta):
+                self.calls += 1
+                if self.calls % self.every == 0:
+                    self.kept.append((clone(s), clone(inbox), ticks.clone(), clone(resid),
+                                      route.clone(), rdelta.clone(), cfg, steps))
+                    if len(self.kept) == 2 * self.keep:
+                        self.kept, self.every = self.kept[1::2], 2 * self.every
+                return fn(s, inbox, ticks, resid, route, rdelta)
+
+            return multi_step
+
+        vector.make_multi_step_fn = make
+        return self
+
+    def __exit__(self, *exc):
+        self._vector.make_multi_step_fn = self._inner
+        return False
+
+
+def compare_superstep_recorded(K, rec):
+    """The kernel super-step against the plain one on every copy `rec`
+    kept, every field of the state, the stacked outputs and plans, the
+    residual and its count. Fails on any mismatch."""
+    assert rec.kept, "the engine's super-step was never recorded"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clone, bad = K.clone_state, set()
+    for s, ib, ticks, resid, route, rdelta, cfg, steps in rec.kept:
+        res_k = K.multi_step_batch(clone(s), ib, ticks, clone(resid), route, rdelta, cfg, steps)
+        res_p = K.multi_step_batch_reference(clone(s), ib, ticks, clone(resid), route, rdelta,
+                                             cfg, steps)
+        torch.cuda.synchronize()
+        bad |= set(superstep_mismatches(res_k, res_p))
+    cfg, steps = rec.kept[-1][6:]
+    out = {"lanes": cfg.groups, "peers": cfg.peers, "log_window": cfg.log_window,
+           "inbox_depth": cfg.inbox_depth, "steps": steps, "cases": len(rec.kept),
+           "mismatched_fields": sorted(bad), "max_abs_err": 0 if not bad else None,
+           "seconds": round(time.perf_counter() - t0, 2)}
+    assert not bad, f"kernel super-step disagrees with the plain one: {out}"
+    return out
+
+
+def _plant_ring(path):
+    """A crash ring where a killed co-process would have left one: the
+    failure bundle's sweep must find it without manual collection."""
+    import os
+
+    from dragonboat_tpu_torch.trace import MmapRing
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    ring = MmapRing(path)
+    ring.write(json.dumps({"t": 1.0, "event": "planted_marker", "cluster": 0}).encode())
+    ring.close()
+
+
+def _check_bundle(res, planted, device):
+    """The injected round's forensic bundle: manifest, the census read
+    from the engines, the history ring and the doctor's diagnosis, the
+    swept rings (the planted one and the round's history ring) merged into
+    one timeline, and a replay line naming the port."""
+    import os
+
+    b = res.bundle
+    assert b and os.path.isdir(b), f"no failure bundle: {b!r}"
+    manifest = json.load(open(os.path.join(b, "manifest.json")))
+    assert manifest["verdicts"].get("injected_failure") is False, manifest["verdicts"]
+    for name in ("device_census.json", "diagnosis.json", "history.ring",
+                 "merged_timeline.jsonl", "top_snapshot.json"):
+        assert os.path.exists(os.path.join(b, name)), f"bundle lacks {name}"
+    census = json.load(open(os.path.join(b, "device_census.json")))
+    diag = json.load(open(os.path.join(b, "diagnosis.json")))
+    swept = manifest["swept_artifacts"]
+    assert planted in swept and any(p.endswith("history.ring") for p in swept), swept
+    events = [json.loads(ln) for ln in open(os.path.join(b, "merged_timeline.jsonl"))]
+    assert any(e.get("event") == "planted_marker" for e in events), "planted ring not merged"
+    assert "python -m dragonboat_tpu_torch.tools.longhaul --seed" in res.replay, res.replay
+    # the card is the default: its replay line names no device
+    assert ("--device" not in res.replay if device == "cuda"
+            else res.replay.endswith(f" --device {device}")), res.replay
+    return {"files": sorted(os.listdir(b)), "swept": len(swept), "merged_events": len(events),
+            "census_hosts": len(census) if hasattr(census, "__len__") else None,
+            "diagnosis": [v["kind"] for v in diag["verdicts"]], "replay": res.replay}
+
+
+def phase_longhaul(cuda, K, device="cuda", rounds=LONGHAUL_ROUNDS):
+    """Phase 8: tools.longhaul on the vector engine on `device`, each run of
+    LONGHAUL_ROUNDS with the counts zeroed just before it. Every round of
+    every run but the injected one must pass every verdict (lincheck,
+    convergence, Log Matching, fairness and its scenarios'), the preflight
+    (tools.check over the port) must report 0 findings, and each round's
+    schedule signature must be its constant. The injected round must fail
+    its injected verdict only and leave a complete bundle. On the card the
+    plain step must never run, every kernel of the run's path must launch,
+    and afterwards the step kernel (K=1 runs) or the kernel super-step
+    (the K=8 run) is held against its plain version on inputs the engines
+    really stepped. Returns the phase's report."""
+    import os
+    import tempfile
+
+    from dragonboat_tpu_torch.tools import longhaul
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dbtorch-longhaul-") as wd:
+        for i, (name, kw) in enumerate(rounds):
+            run_dir = os.path.join(wd, name)
+            planted = None
+            if kw.get("inject_failure"):
+                planted = os.path.join(run_dir, f"round-001-seed-0x{kw['seed']:X}", "crashed.ring")
+                _plant_ring(planted)
+            opts = longhaul.Options(budget_s=900.0, engine="vector", out_dir=run_dir, ring=False,
+                                    device=device, reuse_out=planted is not None,
+                                    triage=planted is None, **kw)
+            for k in cuda.LAUNCHES:
+                cuda.LAUNCHES[k] = 0
+            K.REFERENCE_CALLS["step_batch"] = 0
+            t0 = time.perf_counter()
+            with StepRecorder(K) as rec, SuperstepRecorder(K) as srec:
+                report = longhaul.run_longhaul(opts)
+            r = {"seconds": round(time.perf_counter() - t0, 2),
+                 "launches": dict(cuda.LAUNCHES),
+                 "plain_step_calls": K.REFERENCE_CALLS["step_batch"],
+                 "engine_steps": rec.calls, "supersteps": srec.calls,
+                 "steps_per_sync": opts.steps_per_sync,
+                 "preflight": {k: report["check"].get(k) for k in ("ok", "findings", "suppressed")},
+                 "rounds": [{"seed": f"0x{x.seed:X}", "signature": x.signature,
+                             "scenarios": x.scenarios, "ops": x.ops,
+                             "verdicts": len(x.verdicts),
+                             "failed": sorted(k for k, v in x.verdicts.items() if not v),
+                             "error": x.error, "seconds": round(x.elapsed_s, 2)}
+                            for x in report["rounds"]]}
+            assert report["check"].get("ok") and report["check"].get("findings") == 0, \
+                f"longhaul {name}: preflight {report['check']}"
+            sigs = tuple(x["signature"] for x in r["rounds"])
+            assert sigs == LONGHAUL_SIGNATURES[name], f"longhaul {name}: signatures {sigs}"
+            if planted is not None:
+                assert [x["failed"] for x in r["rounds"]] == [["injected_failure"]], r["rounds"]
+                r["bundle"] = _check_bundle(report["rounds"][0], planted, device)
+            else:
+                assert report["ok"] and all(not x["failed"] and not x["error"]
+                                            for x in r["rounds"]), f"longhaul {name}: {r['rounds']}"
+            if device == "cuda":
+                assert r["plain_step_calls"] == 0, f"longhaul {name}: the plain step ran"
+                idle = [n for n in LONGHAUL_KERNELS[opts.steps_per_sync] if not r["launches"][n]]
+                assert not idle, f"longhaul {name}: never launched {idle}"
+                # after the counts are read: these launches are not the path's
+                if opts.steps_per_sync == 1:
+                    r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, SS_SEED + 80 + i)
+                else:
+                    r["superstep_vs_plain"] = compare_superstep_recorded(K, srec)
+            for x in r["rounds"]:
+                log(f"longhaul {name} round seed={x['seed']}: {x['seconds']} s, "
+                    f"{x['ops']} client ops, scenarios {x['scenarios']}, sig {x['signature']}, "
+                    f"{x['verdicts']} verdicts, failed {x['failed'] or 'none'}")
+            log(f"longhaul {name}: {json.dumps(r, default=str)}")
+            out[name] = r
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    return out
+
+
+# ------------- phase 9: native storage, C++ state machines, the C ABI
+
+# config 2's width: 3 hosts x 1024 groups on one core, K=1, 10 ms ticks
+NATIVE_GROUPS = 1024
+NATIVE_LOAD_S = 4.0
+NATIVE_WAVE = 128
+
+
+def _native_lincheck(hosts, leaders, snap_fn, groups=8, clients=3, ops=24, seed=9):
+    """e2e.lincheck_run's clients for the C++ KV plugin: `key=value`
+    puts and byte-key reads of the first `groups` groups."""
+    import random
+    import threading
+
+    from dragonboat_tpu_torch.lincheck import HistoryRecorder, check_kv_history
+    from dragonboat_tpu_torch.requests import ErrTimeout
+
+    rec, errors = HistoryRecorder(), []
+
+    def client(i):
+        rng = random.Random(seed * 100 + i)
+        for j in range(ops):
+            c = rng.randrange(1, groups + 1)
+            key = f"lk{c}-{rng.randrange(2)}".encode()
+            nh = hosts[snap_fn().get(c, (0, 0))[0] or leaders[c]]
+            if rng.random() < 0.5:
+                val = f"c{i}o{j}".encode()
+                op = rec.invoke(i, ("put", key, val))
+                try:
+                    nh.sync_propose(nh.get_noop_session(c), key + b"=" + val, timeout_s=10.0)
+                    rec.complete(op, None)
+                except ErrTimeout:
+                    rec.unknown(op)
+                except Exception as e:
+                    errors.append(repr(e))
+                    rec.fail(op)
+            else:
+                op = rec.invoke(i, ("get", key))
+                try:
+                    rec.complete(op, nh.sync_read(c, key, timeout_s=10.0))
+                except Exception as e:
+                    errors.append(repr(e))
+                    rec.fail(op)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    hist = rec.history()
+    return {"lincheck_ops": len(hist), "lincheck_errors": len(errors),
+            "lincheck_ok": bool(hist) and check_kv_history(hist)}
+
+
+def _hashes_converged(hosts, groups, timeout_s=60.0):
+    """Wait until every group's replicas hold the same C++ SM hash (the
+    ABI's get_hash) at the same applied index; count the groups that do."""
+    deadline = time.monotonic() + timeout_s
+    pending = set(range(1, groups + 1))
+    while pending:
+        for c in list(pending):
+            idx = {nh.get_applied_index(c) for nh in hosts.values()}
+            if len(idx) == 1 and len({nh.get_sm_hash(c) for nh in hosts.values()}) == 1:
+                pending.discard(c)
+        if not pending or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    return {"groups_hash_equal": groups - len(pending), "hashes_converged": not pending}
+
+
+def _native_main(cuda, K, device, groups, load_s, plugin, workdir):
+    """The main run of phase 9 (see phase_native). Returns its report and
+    the StepRecorder that watched it."""
+    import os
+
+    from dragonboat_tpu_torch import e2e
+    from dragonboat_tpu_torch.config import Config, EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.cpp_sm import CppStateMachineFactory
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.profile import compile_watch, sync_audit
+    from dragonboat_tpu_torch.storage.logdb import ShardedLogDB
+    from dragonboat_tpu_torch.storage.native_kv import NativeWalKV
+    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
+
+    reg, hosts, r = _Registry(), {}, {"groups": groups, "lanes": 3 * groups}
+    members = {n: f"native:{n}" for n in (1, 2, 3)}
+    factory = CppStateMachineFactory(plugin)
+    walls, lap = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        walls[name] = round(now - lap[0], 2)
+        lap[0] = now
+
+    with StepRecorder(K) as rec:
+        try:
+            for nid, addr in members.items():
+                hosts[nid] = NodeHost(NodeHostConfig(
+                    raft_address=addr, rtt_millisecond=10,
+                    nodehost_dir=os.path.join(workdir, f"nh{nid}"),
+                    raft_rpc_factory=lambda a: loopback_factory(a, reg),
+                    logdb_factory=lambda d: ShardedLogDB(os.path.join(d, "logdb"),
+                                                         kv_factory=NativeWalKV),
+                    engine=EngineConfig(kind="vector", max_groups=3 * groups, max_peers=4,
+                                        log_window=256, inbox_depth=4, max_entries_per_msg=64,
+                                        share_scope=f"native-{id(reg)}", profile_sample_ratio=1,
+                                        device=device)))
+            kinds = {type(sh.kv).__name__ for nh in hosts.values() for sh in nh.logdb._shards}
+            assert kinds == {"NativeWalKV"}, f"native: the logdb runs over {kinds}"
+            r["logdb_kv"] = sorted(kinds)
+            for nid in members:
+                hosts[nid].start_clusters([
+                    (dict(members), False, factory,
+                     Config(node_id=nid, cluster_id=c, election_rtt=300, heartbeat_rtt=30))
+                    for c in range(1, groups + 1)])
+            mark("hosts")
+            snap_fn = hosts[1].engine.leader_snapshot
+            leaders, t0 = {}, time.monotonic()
+            while len(leaders) < groups and time.monotonic() - t0 < 180.0:
+                for c, (lid, _t) in snap_fn().items():
+                    if lid:
+                        leaders[c] = lid
+                if len(leaders) < groups:
+                    time.sleep(0.05)
+            r.update(groups_elected=len(leaders), bring_up_s=round(time.monotonic() - t0, 2))
+            mark("elect")
+            assert len(leaders) == groups, f"native: {groups - len(leaders)} groups never elected"
+            load = e2e._Load(hosts, leaders, snap_fn, NATIVE_WAVE, b"w=" + b"x" * 14)
+            load.run(2.0)
+            while not load.started():
+                load.run(0.1)
+            load.open_window()
+            mark("warm")
+            sync_mark = sync_audit().install(device=device).snapshot()
+            build_mark = compile_watch().install().snapshot()
+            t1 = time.perf_counter()
+            load.run(load_s)
+            stop = time.perf_counter() + 15.0
+            while len(load.committed_groups) < groups and time.perf_counter() < stop:
+                load.run(0.25)
+            dt = time.perf_counter() - t1
+            att = e2e._attribution_report(hosts, sync_mark, build_mark)
+            mark("window")
+            r.update(committed=load.total, seconds=round(dt, 2),
+                     proposals_per_s=load.total / dt,
+                     groups_committed_in_window=len(load.committed_groups),
+                     out_of_seam_syncs=att["device_syncs"]["out_of_seam"],
+                     out_of_seam_sites=att["device_syncs"]["sites"],
+                     kernel_builds=att["compile_events"]["total"])
+            r.update(e2e.latency_report(hosts))
+            load.settle()
+            r.update(_native_lincheck(hosts, leaders, snap_fn))
+            mark("lincheck")
+            r.update(_hashes_converged(hosts, groups))
+            mark("hashes")
+            r["engine_steps_total"] = hosts[1].engine.step_stats()["steps"]
+        finally:
+            for nh in hosts.values():
+                try:
+                    nh.stop()
+                except Exception:
+                    pass
+            mark("stop")
+    r["wall_s"] = walls
+    return r, rec
+
+
+def _diskkv_restart(plugin, workdir, device):
+    """tests/test_cpp_sm.py's on-disk cluster restart on `device`: three
+    hosts on the on-disk C++ plugin, 20 proposals, a follower restarted
+    from its dir reopens the plugin at its persisted applied index and
+    serves the last write."""
+    import os
+
+    from dragonboat_tpu_torch.config import Config, EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.cpp_sm import CppStateMachineFactory
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
+
+    t_start = time.perf_counter()
+    factory, reg, hosts = CppStateMachineFactory(plugin), _Registry(), {}
+    old = os.environ.get("DBTPU_DISKKV_DIR")
+    os.environ["DBTPU_DISKKV_DIR"] = os.path.join(workdir, "diskkv")
+
+    def mk(nid, restart=False):
+        nh = NodeHost(NodeHostConfig(
+            deployment_id=32, rtt_millisecond=5, nodehost_dir=f"{workdir}/d{nid}",
+            raft_address=f"d{nid}:1", raft_rpc_factory=lambda a: loopback_factory(a, reg),
+            engine=EngineConfig(kind="vector", max_groups=32, max_peers=4, log_window=64,
+                                device=device)))
+        nh.start_cluster({} if restart else {n: f"d{n}:1" for n in (1, 2, 3)}, False, factory,
+                         Config(cluster_id=1, node_id=nid, election_rtt=20, heartbeat_rtt=2))
+        return nh
+
+    def leader():
+        for n, nh in hosts.items():
+            lid, ok = nh.get_leader_id(1)
+            if ok and lid == n:
+                return n
+        return None
+
+    try:
+        for nid in (1, 2, 3):
+            hosts[nid] = mk(nid)
+        deadline = time.monotonic() + 60
+        while leader() is None and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert leader() is not None, "diskkv: no leader"
+        i = 0
+        while i < 20:
+            lid = leader()
+            try:
+                if lid is not None:
+                    nh = hosts[lid]
+                    nh.sync_propose(nh.get_noop_session(1), f"k{i}=v{i}".encode(), timeout_s=5.0)
+                    i += 1
+                    continue
+            except Exception:
+                assert time.monotonic() < deadline + 60, "diskkv: proposals keep failing"
+            time.sleep(0.05)
+        lid = leader()
+        victim = next(n for n in hosts if n != lid)
+        applied = hosts[victim].get_applied_index(1)
+        hosts[victim].stop()
+        hosts[victim] = mk(victim, restart=True)
+        resumed = hosts[victim].get_applied_index(1)
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                if hosts[victim].stale_read(1, b"k19") == b"v19":
+                    break
+            except Exception:
+                pass
+            assert time.monotonic() < deadline, "diskkv: the restarted host did not recover"
+            time.sleep(0.05)
+        return {"applied_before_restart": applied, "applied_at_restart": resumed,
+                "seconds": round(time.perf_counter() - t_start, 2)}
+    finally:
+        for nh in hosts.values():
+            try:
+                nh.stop()
+            except Exception:
+                pass
+        if old is None:
+            os.environ.pop("DBTPU_DISKKV_DIR", None)
+        else:
+            os.environ["DBTPU_DISKKV_DIR"] = old
+
+
+def _run_demos(paths, plugins, workdir, device):
+    """The port's embed_demo and oo_demo (native/examples, linked against
+    the port's libdbtpu.so) with the NodeHost on `device`."""
+    import os
+
+    from dragonboat_tpu_torch import native
+
+    out = {}
+    for name, plugin, banner in (("embed_demo", plugins["kvstore"], "EMBED DEMO PASS"),
+                                 ("oo_demo", plugins["diskkv"], "OO DEMO PASS")):
+        env = native.demo_env(device)
+        env["DBTPU_DISKKV_DIR"] = os.path.join(workdir, f"{name}-diskkv")
+        t0 = time.perf_counter()
+        proc = subprocess.run([paths[name], os.path.join(workdir, name), plugin],
+                              capture_output=True, text=True, timeout=300, env=env)
+        assert proc.returncode == 0 and banner in proc.stdout, \
+            f"{name}: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}"
+        out[name] = {"seconds": round(time.perf_counter() - t0, 2), "passed": banner}
+    return out
+
+
+def phase_native(cuda, K, device="cuda", groups=NATIVE_GROUPS, load_s=NATIVE_LOAD_S):
+    """Phase 9: the native pieces on `device`. Builds native/ (make: the
+    WAL store and the example C++ state machine plugins) and the port's
+    embedding library with its demos (dragonboat_tpu_torch.native); a
+    failed build fails the phase. Main run at config 2's width (3 hosts x
+    `groups` groups on one core, K=1): each host's ShardedLogDB over
+    NativeWalKV, every group's state machine the C++ KV plugin through
+    CppStateMachineFactory; elect every group, pipelined waves for
+    `load_s` (run on until every group committed one in the window), a
+    3-client propose/read history that must be linearizable, and every
+    group's replicas at one C++ SM hash; 0 kernel builds and 0 device
+    reads off the seams in the window, the step kernel launched and the
+    plain step never (counts zeroed just before), then the kernel held
+    against its plain version at this shape. Then the on-disk plugin's
+    3-host restart, and the port's embed_demo and oo_demo with the
+    NodeHost on `device`. Returns the phase's report."""
+    import tempfile
+
+    from dragonboat_tpu_torch import native
+    from dragonboat_tpu_torch.storage.native_kv import _ensure_built
+
+    t_phase = time.perf_counter()
+    plugins = native.build_plugins()
+    _ensure_built()
+    paths = native.build_embedding()
+    out = {"build_s": round(time.perf_counter() - t_phase, 2)}
+    for k in cuda.LAUNCHES:
+        cuda.LAUNCHES[k] = 0
+    K.REFERENCE_CALLS["step_batch"] = 0
+    with tempfile.TemporaryDirectory(prefix="dbtorch-native-") as wd:
+        r, rec = _native_main(cuda, K, device, groups, load_s, plugins["kvstore"], wd)
+    r["launches"] = dict(cuda.LAUNCHES)
+    r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
+    log(f"native: {json.dumps(r, default=str)}")
+    gates = {"elected": r["groups_elected"] == groups, "committed": r["committed"] > 0,
+             "lincheck": r["lincheck_ok"], "hashes": r["hashes_converged"],
+             "builds": r["kernel_builds"] == 0, "syncs": r["out_of_seam_syncs"] == 0}
+    assert all(gates.values()), f"native: gates {gates}"
+    if device == "cuda":
+        assert r["plain_step_calls"] == 0, "native: the engine ran the plain step on the card"
+        assert r["launches"]["step_batch"] > 0, "native: the step kernel never launched"
+        r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, SS_SEED + 90)
+    out["main"] = r
+    for k in cuda.LAUNCHES:
+        cuda.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory(prefix="dbtorch-diskkv-") as wd:
+        out["diskkv_restart"] = _diskkv_restart(plugins["diskkv"], wd, device)
+    out["diskkv_restart"]["launches"] = dict(cuda.LAUNCHES)
+    if device == "cuda":
+        assert out["diskkv_restart"]["launches"]["step_batch"] > 0, "diskkv: no step launched"
+    with tempfile.TemporaryDirectory(prefix="dbtorch-embed-") as wd:
+        out["demos"] = _run_demos(paths, plugins, wd, device)
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1718,13 +2276,33 @@ def main() -> int:
         f"ms), history sample {tools['history']['sample_cost_ms_mean']:.3f} ms mean over "
         f"{tools['history']['samples_total']} samples ({tools['history']['lanes_per_sampler']} "
         f"lanes per sampler), phase {tools['seconds']} s [{card}]")
+
+    # ---- phase 8: tools.longhaul on the card ----
+    lh = phase_longhaul(cuda, K)
+    lh_runs = [n for n, _ in LONGHAUL_ROUNDS]
+    run_s = ", ".join(f"{n} {lh[n]['seconds']} s" for n in lh_runs)
+    log(f"longhaul: {len(lh_runs)} runs, {sum(len(lh[n]['rounds']) for n in lh_runs)} rounds, "
+        f"phase {lh['seconds']} s ({run_s}) [{card}]")
+
+    # ---- phase 9: native storage, C++ state machines, the C ABI ----
+    nat = phase_native(cuda, K)
+    log(f"native @ {nat['main']['lanes']} lanes over NativeWalKV with the C++ KV plugin: "
+        f"{nat['main']['proposals_per_s']:.1f} proposals/s (phase 5 config 2: "
+        f"{engines[2][0].get('value', 0):.1f}/s), elected {nat['main']['groups_elected']}, "
+        f"hashes equal in {nat['main']['groups_hash_equal']} groups, lincheck "
+        f"{nat['main']['lincheck_ok']}; on-disk plugin restart {nat['diskkv_restart']}; demos "
+        f"{nat['demos']}; phase {nat['seconds']} s [{card}]")
+
     # the step kernel against its plain version at the shapes the engine
-    # ran in phases 5 and 6 (each already failed on a mismatch)
+    # ran in phases 5-9 (each already failed on a mismatch)
     shapes = {f"config{c}": r["kernel_vs_plain"] for c, (r, _) in engines.items()
               if "kernel_vs_plain" in r}
     shapes.update({f"faults_{n}": f["kernel_vs_plain"] for n, f in faults.items()})
     shapes.update({f"tools_{n}": tools[n]["kernel_vs_plain"]
                    for n in ("hosts", "importer", "helloworld")})
+    shapes.update({f"longhaul_{n}": lh[n]["kernel_vs_plain"] for n in lh_runs
+                   if "kernel_vs_plain" in lh[n]})
+    shapes["native"] = nat["main"]["kernel_vs_plain"]
     cases += sum(v["cases"] for v in shapes.values())
     err = max([err] + [v["max_abs_err"] for v in shapes.values()])
     # engine steps of the whole run (config 8: both of its runs)
@@ -1734,6 +2312,18 @@ def main() -> int:
         f"config{c}": {"launches": ln[name],
                        "per_engine_step": ln[name] / max(1, steps_of(r))}
         for c, (r, ln) in engines.items()}
+
+    def longhaul_launches(name):
+        # per run of phase 8: launches, per round, per engine step (K=1)
+        # or per inner step of the super-step (K=8)
+        out = {}
+        for n in lh_runs:
+            r = lh[n]
+            inner = r["engine_steps"] + r["supersteps"] * r["steps_per_sync"]
+            out[n] = {"launches": r["launches"][name],
+                      "per_round": r["launches"][name] / max(1, len(r["rounds"])),
+                      "per_engine_step": r["launches"][name] / max(1, inner)}
+        return out
 
     ring = "dragonboat_tpu_torch/csrc/"
     kernels = {"kernels": [{
@@ -1764,6 +2354,12 @@ def main() -> int:
         "faults": {n: f["launches"]["step_batch"] for n, f in faults.items()},
         "tools": {n: tools[n]["launches"]["step_batch"]
                   for n in ("hosts", "importer", "helloworld")},
+        "longhaul": longhaul_launches("step_batch"),
+        "native": {"launches": nat["main"]["launches"]["step_batch"],
+                   "per_engine_step": nat["main"]["launches"]["step_batch"]
+                   / max(1, nat["main"]["engine_steps_total"]),
+                   "diskkv_restart": nat["diskkv_restart"]["launches"]["step_batch"]},
+        "longhaul_superstep": lh["k8"]["superstep_vs_plain"],
         "engine_shapes": shapes,
         "ptxas": ptxas["step_batch_kernel"],
         "frame_bytes": frames,
@@ -1783,6 +2379,7 @@ def main() -> int:
             "per_superstep": per_ss(name, unsharded),
             "per_superstep_sharded": per_ss(name, sharded),
             "engine": per_step(name),
+            "longhaul": longhaul_launches(name),
             "ptxas": ptxas[name + "_kernel"],
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "cases", "bad")},
@@ -1803,6 +2400,11 @@ def main() -> int:
                          for n, f in faults.items()}
     kernels["tools"] = {k: v for k, v in tools.items()
                         if k not in ("hosts", "importer", "helloworld")}
+    kernels["longhaul"] = {n: {k: v for k, v in lh[n].items()
+                               if k not in ("launches", "kernel_vs_plain")} for n in lh_runs}
+    kernels["native"] = {k: v for k, v in nat.items() if k != "main"}
+    kernels["native"]["main"] = {k: v for k, v in nat["main"].items()
+                                 if k not in ("launches", "kernel_vs_plain")}
     log(f"card: {card_line()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 codec, settings, raftio, the scalar core, storage, transport, rsm, engine
 host pieces, lincheck, the fault plane, the fuzzer, the serving plane,
 the operator tools that read no port-specific surface, the analyzer's
-call graph):
+call graph, the native WAL store's binding and the C++ state machine
+loader):
 they must agree with the reference. The port's
 codec encodes seeded message batches, entries, snapshots, chunks and
 bootstrap records to exactly the reference's bytes, and each decodes the
@@ -31,7 +32,7 @@ COPIED = (
     "rsm.encoded", "rsm.session", "rsm.membership", "rsm.managed",
     "rsm.snapshotio", "rsm.manager", "rsm",
     "storage.keys", "storage.kv", "storage.sqlite_kv", "storage.logdb",
-    "storage.logreader", "storage",
+    "storage.logreader", "storage.native_kv", "storage", "cpp_sm",
     "transport.nodes", "transport.loopback", "transport.tcp",
     "transport.chunks", "transport.snapshotstream", "transport.transport",
     "transport",
@@ -91,8 +92,10 @@ def test_copy_keeps_the_reference_code(name):
     assert code_tokens(source_path(PORT, name)) == code_tokens(source_path(REF, name))
 
 
-# drawn at random per process (trace-id salt), not a table
-PER_PROCESS = {"_TRACE_SALT"}
+# drawn at random per process (trace-id salt), not a table; a path from
+# each package's own directory (both name the repository's native/,
+# test_native_copies_share_one_library)
+PER_PROCESS = {"_TRACE_SALT", "_NATIVE_DIR"}
 
 
 def _in_package(v):
@@ -202,3 +205,11 @@ def test_codec_records_equal(seed):
     assert Cp.encode_chunk(Tp.SnapshotChunk(**chunk)) == Cr.encode_chunk(Tr.SnapshotChunk(**chunk))
     boot = dict(addresses={1: "a:1", 2: "b:2"}, join=bool(seed % 2), type=seed % 3)
     assert Cp.encode_bootstrap(Tp.Bootstrap(**boot)) == Cr.encode_bootstrap(Tr.Bootstrap(**boot))
+
+
+def test_native_copies_share_one_library():
+    """Both packages' native WAL bindings resolve one native/ directory,
+    so they build and load one libwalkv.so from one walkv.cc."""
+    ref, port = pair("storage.native_kv")
+    assert os.path.realpath(port._NATIVE_DIR) == os.path.realpath(ref._NATIVE_DIR)
+    assert port._LIB_PATH == ref._LIB_PATH

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of `dragonboat_tpu_torch/`, and
-neither `chip_smoke.py` nor `compare_kernels.py`, imports jax or the JAX
-package `dragonboat_tpu`."""
+neither `chip_smoke.py` nor `compare_kernels.py`, nor the Python glue that
+the port's embedding ABI (`dragonboat_tpu_torch/native/binding.cc`) loads
+into its interpreter, imports jax or the JAX package `dragonboat_tpu`."""
 import ast
 import os
 
@@ -17,8 +18,18 @@ def _port_files():
     return sorted(files)
 
 
-def _imported_roots(path):
-    tree = ast.parse(open(path).read(), filename=path)
+GLUE = os.path.join(ROOT, "dragonboat_tpu_torch", "native", "binding.cc")
+
+
+def _glue_source():
+    """The Python glue string of the port's binding.cc."""
+    src = open(GLUE).read()
+    a = src.index('R"PY(') + len('R"PY(')
+    return src[a:src.index(')PY"', a)]
+
+
+def _imported_roots(path, source=None):
+    tree = ast.parse(open(path).read() if source is None else source, filename=path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
@@ -35,6 +46,14 @@ def _imported_roots(path):
 def test_port_file_imports_no_jax(path):
     bad = [(m, line) for m, line in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_embedding_glue_imports_no_jax():
+    roots = [m for m, _ in _imported_roots(GLUE, _glue_source())]
+    assert "dragonboat_tpu_torch" in roots
+    bad = [m for m in roots if m in FORBIDDEN]
+    assert not bad, f"the embedding glue imports {bad}"
+    assert "jax" not in _glue_source().lower()
 
 
 def test_scan_sees_the_port():
