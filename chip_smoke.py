@@ -54,7 +54,17 @@ with every host's log over the native WAL store (NativeWalKV) and every
 group's state machine the C++ KV plugin: elected, linearizable, every
 group's replicas at one C++ SM hash; then the on-disk C++ plugin's
 restart and the C embedding ABI's two demo applications, linked against
-the port's own libdbtpu.so, with their NodeHosts on the card. After
+the port's own libdbtpu.so, with their NodeHosts on the card. Phase 10
+runs the sharded path (`EngineConfig.shard_over_mesh`) over 4 logical
+shards of the card, each its own lane block, state tree and CUDA stream,
+the candidate gather launched once per destination shard and ordered by
+events: the sharded super-step at config 6's shape in lockstep with the
+plain sharded version and at 50,000 lanes with the plain one (every
+field), its wall and busy time against the unsharded one's, then configs
+6 and 2 through NodeHost with shard_over_mesh (every gate, the mesh
+stamps, no host message for co-hosted traffic at K=8, the launches of
+every kernel per shard); it prints how many distinct cards it spanned,
+and where several are visible also runs over them. After
 each K=1 engine run of phases 5-9 the step kernel is held against its
 plain version on states that run stepped, at its own lanes, window and
 inbox depth, and after phase 8's K=8 round the kernel super-step (step
@@ -427,13 +437,14 @@ def superstep_mismatches(x, y):
 
 def check_superstep_launches(counts, plain_calls, inner_steps, n):
     """Every kernel of the path ran: per inner step one step, one columns
-    and one of each scatter pass unsharded and n of each sharded, one
-    gather (sharded only), and one plain step on the plain path."""
+    and one of each scatter pass unsharded and n of each sharded, n
+    gathers (sharded only: one per destination shard), and one plain step
+    on the plain path."""
     for name, c in counts.items():
         assert c > 0, f"the super-step path launched no {name} kernel"
     for name in ("step_batch", "route_columns", "route_index", "route_scatter"):
         assert counts[name] == inner_steps * (1 + n), counts
-    assert counts["ring_gather"] == inner_steps, counts
+    assert counts["ring_gather"] == inner_steps * n, counts
     assert plain_calls == inner_steps, f"the plain path ran {plain_calls} steps"
 
 
@@ -803,7 +814,8 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
         lambda: None, 50, names[:1])["route_columns_kernel"]
     shard_cols_bound = sum(hbm(kb.route_columns_bytes(parts[1][i], parts[2][i], cfg))
                            for i in range(n)) / n
-    launcher("ring_gather_launch", cuda._gather_params(srecs, sgath), "ring_gather")
+    for d in range(n):
+        launcher("ring_gather_launch", cuda._gather_params(srecs, sgath[d]), "ring_gather")
     sxp = [cuda._scatter_params(sgath[i], cuda.alloc_slots(G, K_, dev), n, i, Gl, P, snxt[i],
                                 splan[i], cfg) for i in range(n)]
     per_shard = kb.device_ms(lambda: [launcher.scatter(x) for x in sxp], lambda: None, 50,
@@ -815,16 +827,24 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
                       for a, x, b in zip(mine, snxt, bits)) / n
 
     # the gather at config 6 over 4 shards: one record per shard; and, to
-    # read beside earlier runs, one (C, Ml) slab per shard
+    # read beside earlier runs, one (C, Ml) slab per shard. Per destination:
+    # one launch's device duration (the mean over the n destinations'
+    # launches), the plain version for one destination (gather_for) and the
+    # library call that computes the same stack (torch.stack); all n
+    # destinations: the n launches' device time and the plain version's
     def time_gather(shape):
         xs = [torch.randint(-9, 9, shape, dtype=torch.int32, device=dev) for _ in range(n)]
         outs = [torch.empty((n,) + shape, dtype=torch.int32, device=dev) for _ in range(n)]
-        gp = cuda._gather_params(xs, outs)
-        ms = kb.device_ms(lambda: launcher("ring_gather_launch", gp, "ring_gather"),
+        gps = [cuda._gather_params(xs, o) for o in outs]
+        ms = kb.device_ms(lambda: [launcher("ring_gather_launch", gp, "ring_gather")
+                                   for gp in gps],
                           lambda: None, 50, ["ring_gather_kernel"])["ring_gather_kernel"]
-        return dict(ms=ms, plain_ms=time_ms(lambda: K.ring_gather_reference(xs), 20),
-                    library_ms=time_ms(lambda: [torch.stack(xs) for _ in range(n)], 20),
-                    bound_ms=hbm(kb.ring_gather_bytes(n, xs[0].numel())))
+        return dict(ms=ms, plain_ms=time_ms(lambda: K.gather_for(xs, 0), 20),
+                    library_ms=time_ms(lambda: torch.stack(xs), 20),
+                    bound_ms=hbm(kb.ring_gather_dest_bytes(n, xs[0].numel())),
+                    all_destinations_ms=n * ms,
+                    all_destinations_plain_ms=time_ms(lambda: K.ring_gather_reference(xs), 20),
+                    all_destinations_bound_ms=hbm(kb.ring_gather_bytes(n, xs[0].numel())))
 
     gather = time_gather((Ls,))
     gather_slab = time_gather((C, Ml))
@@ -842,8 +862,11 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
         f"insert pass {shard_index_ms:.4f} ms, write pass {shard_scat_ms:.4f} ms, both "
         f"{shard_index_ms + shard_scat_ms:.4f} ms, bound {shard_bound:.5f} ms")
     for what, g in ((f"{Ls}-word records", gather), (f"({C}, {Ml}) slabs", gather_slab)):
-        log(f"ring_gather n={n} x {what}: kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
-            f"library torch.stack x{n} {g['library_ms']:.4f} ms, bound {g['bound_ms']:.5f} ms")
+        log(f"ring_gather n={n} x {what}, per destination: kernel {g['ms']:.4f} ms, plain "
+            f"(gather_for) {g['plain_ms']:.4f} ms, library torch.stack {g['library_ms']:.4f} ms, "
+            f"bound {g['bound_ms']:.5f} ms; all {n} destinations: kernel "
+            f"{g['all_destinations_ms']:.4f} ms, plain {g['all_destinations_plain_ms']:.4f} ms, "
+            f"bound {g['all_destinations_bound_ms']:.5f} ms")
     if route_bad or record_bad or gather_bad:
         raise AssertionError(f"router {sorted(route_bad)}, records {sorted(record_bad)}, "
                              f"gather {sorted(gather_bad)}")
@@ -866,7 +889,8 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
                               scatter_per_shard_bound_ms=shard_bound,
                               router_call_ms=call_ms),
         "ring_gather": dict(**gather, cases=gather_cases, bad=gather_bad, record_words=Ls,
-                            slab_shape=[C, Ml], slab_shape_ms=gather_slab["ms"],
+                            per="destination", slab_shape=[C, Ml],
+                            slab_shape_ms=gather_slab["ms"],
                             slab_shape_bound_ms=gather_slab["bound_ms"],
                             slab_shape_library_ms=gather_slab["library_ms"]),
     }
@@ -1620,41 +1644,72 @@ LONGHAUL_KERNELS = {1: ("step_batch",),
 
 class SuperstepRecorder:
     """While entered, every vector engine built inside it wraps its K-step
-    super-step (engine/vector.py's make_multi_step_fn) to keep copies of
-    the super-step's inputs (state, inbox, ticks, residual inbox, route and
-    delta planes) as StepRecorder keeps the step's: clones on the engine's
+    super-step (engine/vector.py's make_multi_step_fn, and the sharded
+    engine's make_sharded_multi_step_fn) to keep copies of the
+    super-step's inputs (state, inbox, ticks, residual inbox, route and
+    delta planes; per shard when sharded, each cloned on its shard's
+    stream) as StepRecorder keeps the step's: clones on the engine's
     stream, one call in 4, halved when 6 are held. For holding the kernel
-    super-step (step and router kernels) against the plain one
-    afterwards at the shape the engine ran."""
+    super-step (step and router kernels, and the gather when sharded)
+    against the plain one afterwards at the shape the engine ran."""
 
     def __init__(self, K):
-        self.K, self.keep, self.every, self.calls, self.kept = K, 3, 4, 0, []
+        self.K, self.keep, self.every, self.calls = K, 3, 4, 0
+        self.kept, self.kept_sharded = [], []
+
+    def _record(self, kept, copy):
+        self.calls += 1
+        if self.calls % self.every == 0:
+            kept.append(copy())
+            if len(kept) == 2 * self.keep:
+                kept[:], self.every = kept[1::2], 2 * self.every
 
     def __enter__(self):
+        import contextlib
+
         from dragonboat_tpu_torch.engine import vector
 
-        self._vector, self._inner = vector, vector.make_multi_step_fn
+        self._vector = vector
+        self._inner = vector.make_multi_step_fn, vector.make_sharded_multi_step_fn
         clone = self.K.clone_state
 
         def make(cfg, steps, *args, **kwargs):
-            fn = self._inner(cfg, steps, *args, **kwargs)
+            fn = self._inner[0](cfg, steps, *args, **kwargs)
 
             def multi_step(s, inbox, ticks, resid, route, rdelta):
-                self.calls += 1
-                if self.calls % self.every == 0:
-                    self.kept.append((clone(s), clone(inbox), ticks.clone(), clone(resid),
-                                      route.clone(), rdelta.clone(), cfg, steps))
-                    if len(self.kept) == 2 * self.keep:
-                        self.kept, self.every = self.kept[1::2], 2 * self.every
+                self._record(self.kept, lambda: (
+                    clone(s), clone(inbox), ticks.clone(), clone(resid), route.clone(),
+                    rdelta.clone(), cfg, steps))
                 return fn(s, inbox, ticks, resid, route, rdelta)
 
             return multi_step
 
-        vector.make_multi_step_fn = make
+        def make_sharded(cfg, steps, devices, *args, **kwargs):
+            fn = self._inner[1](cfg, steps, devices, *args, **kwargs)
+
+            def sharded(states, inboxes, ticks, resids, routes, rdeltas, streams=None,
+                        into=None):
+                def copy():
+                    copies = []
+                    for i in range(len(states)):
+                        with (torch.cuda.stream(streams[i]) if streams
+                              else contextlib.nullcontext()):
+                            copies.append((clone(states[i]), clone(inboxes[i]),
+                                           ticks[i].clone(), clone(resids[i]),
+                                           routes[i].clone(), rdeltas[i].clone()))
+                    return copies, cfg, steps, tuple(devices)
+
+                self._record(self.kept_sharded, copy)
+                return fn(states, inboxes, ticks, resids, routes, rdeltas, streams=streams,
+                          into=into)
+
+            return sharded
+
+        vector.make_multi_step_fn, vector.make_sharded_multi_step_fn = make, make_sharded
         return self
 
     def __exit__(self, *exc):
-        self._vector.make_multi_step_fn = self._inner
+        self._vector.make_multi_step_fn, self._vector.make_sharded_multi_step_fn = self._inner
         return False
 
 
@@ -2125,6 +2180,242 @@ def phase_native(cuda, K, device="cuda", groups=NATIVE_GROUPS, load_s=NATIVE_LOA
     return out
 
 
+# ---------- phase 10: the sharded path (shard_over_mesh) on logical shards
+
+# 4 shards, each its own lane block, state tree and CUDA stream; on a
+# one-card machine all of them on cuda:0 (logical shards). The kernel-level
+# lockstep runs config 6's shape (3,072 lanes) and BASELINE's scale (50,000
+# lanes: 12,500 groups x 4 replicas, 12,500 lanes a shard); the engine runs
+# configs 6 and 2 through NodeHost with shard_over_mesh
+MESH_SHARDS = 4
+MESH_WINDOWS = 4
+MESH_BIG = (12500, 4)
+MESH_CONFIGS = (6, 2)
+MESH_KERNELS = ("step_batch", "route_columns", "ring_gather", "route_index", "route_scatter")
+
+
+def _join_superstep(K, res):
+    """A sharded super-step result joined over the lane axis."""
+    return (K.unshard_tree(res[0]), K.unshard_tree(res[1], axis=1),
+            K.unshard_tree(res[2], axis=1), K.unshard_tree(res[3]), K.unshard_tree(res[4]))
+
+
+def _on_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return tuple(_on_cpu(t) for t in tree)
+    return type(tree)(*(t.cpu() for t in tree))
+
+
+def compare_sharded_recorded(K, rec):
+    """The kernel sharded super-step (its own streams) on every copy `rec`
+    (a SuperstepRecorder) kept of the sharded engine's against the plain
+    unsharded super-step on the joined inputs, every field. Fails on any
+    mismatch."""
+    assert rec.kept_sharded, "the engine's sharded super-step was never recorded"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clone, bad = K.clone_state, set()
+    for copies, cfg, steps, devices in rec.kept_sharded:
+        cols = list(zip(*copies))
+        fn = K.make_sharded_multi_step_fn(cfg, steps, devices)
+        res_k = fn([clone(x) for x in cols[0]], cols[1], cols[2],
+                   [clone(x) for x in cols[3]], cols[4], cols[5])
+        joined = [K.unshard_tree(list(c)) for c in cols]
+        res_p = K.multi_step_batch_reference(clone(joined[0]), joined[1], joined[2],
+                                             clone(joined[3]), joined[4], joined[5], cfg, steps)
+        torch.cuda.synchronize()
+        bad |= set(superstep_mismatches(_join_superstep(K, res_k), res_p))
+    cfg, steps, devices = rec.kept_sharded[-1][1:]
+    out = {"lanes": cfg.groups, "shards": len(devices), "steps": steps,
+           "cases": len(rec.kept_sharded), "mismatched_fields": sorted(bad),
+           "max_abs_err": 0 if not bad else None,
+           "seconds": round(time.perf_counter() - t0, 2)}
+    assert not bad, f"kernel sharded super-step disagrees with the plain one: {out}"
+    return out
+
+
+def mesh_lockstep(K, cuda, kb, groups, replicas, devices, yardstick):
+    """The sharded super-step over `devices` (one per shard, each on a
+    stream of its own, K=SS_STEPS) for MESH_WINDOWS windows of the config-6
+    scenario, in lockstep with a plain yardstick, every field of the state,
+    the stacked outputs and plans, the residual and its count after every
+    window: yardstick "sharded" is sharded_multi_step_batch on CPU copies of
+    the shards (the plain sharded version), "unsharded" the plain unsharded
+    super-step on the card. The launch counts are read before any other
+    launch. Returns (cfg, s0, route, rdelta, hosts, mismatched fields,
+    launches)."""
+    from dragonboat_tpu_torch.ops.state import make_empty_inbox
+
+    cfg = kb.superstep_config(groups, replicas)
+    G, n, steps = cfg.groups, len(devices), SS_STEPS
+    dev = devices[0]
+    cpu = torch.device("cpu")
+    s0, route, rdelta = kb.superstep_cluster(groups, replicas, cfg, dev)
+    smulti = K.make_sharded_multi_step_fn(cfg, steps, devices)
+    ticks = torch.ones((G,), dtype=torch.int32, device=dev)
+    shard = lambda x: K.shard_tree(x, n, devices=devices)
+    s_sh, resid_sh = shard(K.clone_state(s0)), shard(make_empty_inbox(cfg, dev))
+    sticks, routes, rdeltas = shard(ticks), shard(route), shard(rdelta)
+    if yardstick == "sharded":
+        cshard = lambda x: K.shard_tree(_on_cpu(x), n)
+        s_p, resid_p = cshard(s0), cshard(make_empty_inbox(cfg, dev))
+        p_args = (cshard(ticks), cshard(route), cshard(rdelta))
+    else:
+        s_p, resid_p = K.clone_state(s0), make_empty_inbox(cfg, dev)
+    rc = torch.zeros((G,), dtype=torch.int32, device=dev)
+    leaders = np.zeros(groups, dtype=np.int64)
+    rng = np.random.default_rng(SS_SEED + groups)
+    hosts, bad_all = [], set()
+    for name in cuda.LAUNCHES:
+        cuda.LAUNCHES[name] = 0
+    for w in range(MESH_WINDOWS):
+        ib, leaders = kb.host_window(w, rc, leaders, groups, replicas, cfg, rng, dev)
+        hosts.append((ib, leaders.copy()))
+        res_sh = smulti(s_sh, shard(ib), sticks, resid_sh, routes, rdeltas)
+        got = _join_superstep(K, res_sh)
+        if yardstick == "sharded":
+            res_p = K.sharded_multi_step_batch(s_p, K.shard_tree(_on_cpu(ib), n), p_args[0],
+                                               resid_p, p_args[1], p_args[2], cfg, steps)
+            want = _join_superstep(K, res_p)
+            bad = superstep_mismatches(_on_cpu(got), want)
+            s_p, resid_p = res_p[0], res_p[3]
+        else:
+            res_p = K.multi_step_batch_reference(s_p, ib, ticks, resid_p, route, rdelta, cfg,
+                                                 steps)
+            bad = superstep_mismatches(got, res_p)
+            s_p, resid_p = res_p[0], res_p[3]
+        bad_all |= set(bad)
+        s_sh, resid_sh, rc = res_sh[0], res_sh[3], got[4].to(dev)
+        for st in (*s_sh, *(s_p if yardstick == "sharded" else (s_p,))):
+            kb.compact(st)
+        log(f"mesh lockstep {G} lanes over {n} shards ({yardstick} yardstick) window {w}: "
+            f"routed {int(sum(int(p.sum()) for p in got[2]))}, residual {int(got[4].sum())}, "
+            f"mismatched fields {sorted(bad) or 0}")
+    counts = dict(cuda.LAUNCHES)  # the yardsticks launch none of the kernels
+    want_n = MESH_WINDOWS * steps * n
+    if dev.type == "cuda":
+        assert all(counts[k] == want_n for k in MESH_KERNELS), (counts, want_n)
+    return cfg, s0, route, rdelta, hosts, sorted(bad_all), counts
+
+
+def phase_mesh_engine(cuda, K, config, devices, groups=None, duration=None):
+    """BASELINE config `config` through NodeHost with shard_over_mesh over
+    `devices` (engine.vector.mesh_devices names them for the run), with
+    every gate of e2e.gate_failures, the mesh stamps, no ghost lane in
+    lane_stats, and the launches of the path: per inner step n step
+    launches and, at K>1, n of each router kernel and n gathers. At K>1 the
+    window must build no host Message for co-hosted traffic while the
+    device router carries it, and a recorded engine super-step is held
+    against the plain one afterwards (SuperstepRecorder; these launches
+    come after the counts are read). Returns (report, launches)."""
+    from dragonboat_tpu_torch import e2e
+    from dragonboat_tpu_torch.engine import vector
+
+    spec = e2e.LADDER[config]
+    k, n = spec.get("steps_per_sync", 1), len(devices)
+    orig = vector.mesh_devices
+    vector.mesh_devices = lambda device: tuple(devices)
+    for name in cuda.LAUNCHES:
+        cuda.LAUNCHES[name] = 0
+    K.REFERENCE_CALLS["step_batch"] = 0
+    try:
+        with SuperstepRecorder(K) as rec:
+            r = e2e.run_ladder_config(config, groups=groups, duration=duration,
+                                      device=devices[0].type, shard_over_mesh=True)
+    finally:
+        vector.mesh_devices = orig
+    launches = dict(cuda.LAUNCHES)
+    r["launches"] = launches
+    r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
+    inner = max(1, r.get("engine_steps_total", 0))
+    r["launches_per_inner_step"] = {name: c / inner for name, c in launches.items()}
+    msgs = r.get("msgs_in_window") or {}
+    log(f"mesh engine config {config} ({spec['label']}; {r.get('groups')} groups x "
+        f"{spec['replicas']}) over {n} shards on {len({str(d) for d in devices})} card(s): "
+        f"{r.get('committed', 0)} committed in {r.get('seconds')} s, value "
+        f"{r.get('value', 0):.1f}/s, commit p50 {r.get('commit_latency_p50_s')} s p99 "
+        f"{r.get('commit_latency_p99_s')} s, {r.get('engine_steps_per_s', 0):.2f} engine steps/s "
+        f"(K={k}), mesh {dict((x, r.get(x)) for x in ('shard_over_mesh', 'n_devices', 'mesh_shape', 'padded_groups'))}, "
+        f"messages in the window {msgs}, lanes {r.get('lanes_total')}, launches {launches} "
+        f"({ {x: round(v, 3) for x, v in r['launches_per_inner_step'].items()} } per inner "
+        f"step), out-of-seam syncs {r.get('out_of_seam_syncs')}, kernel builds "
+        f"{r.get('kernel_builds')}, elected {r.get('groups_elected')}, converged "
+        f"{r.get('converged')}, lincheck {r.get('lincheck_ok')} [{r.get('card')}, "
+        f"{r.get('power_limit')}]")
+    log(json.dumps({"mesh_engine": r}, default=str))
+    bad = e2e.gate_failures(r)
+    assert not bad, f"mesh config {config}: {bad}"
+    assert (r["shard_over_mesh"], r["n_devices"], r["mesh_shape"]) == (True, n, [n]), r
+    assert "padded_groups" in r and r["padded_groups"] >= 0
+    # lane_stats reports the configured lanes only: no ghost of the round-up
+    assert r.get("lanes_total") == r["groups"] * spec["replicas"], r.get("lanes_total")
+    if k > 1:
+        for key in ("msgs_replicate", "msgs_broadcast", "msgs_resp"):
+            assert msgs.get(key) == 0, f"co-hosted traffic built host messages: {msgs}"
+        assert msgs.get("msgs_routed_device", 0) > 0, msgs
+    if devices[0].type != "cuda":
+        return r, launches
+    assert r["plain_step_calls"] == 0, "the sharded engine ran the plain step on the card"
+    assert launches["step_batch"] > 0 and launches["step_batch"] % n == 0, launches
+    if k > 1:
+        for name in MESH_KERNELS:
+            assert launches[name] == launches["step_batch"], launches
+        r["superstep_vs_plain"] = compare_sharded_recorded(K, rec)
+    else:
+        assert all(launches[x] == 0 for x in MESH_KERNELS[1:]), launches
+    return r, launches
+
+
+def phase_mesh(cuda, K, kb, card):
+    """Phase 10: the sharded path over MESH_SHARDS logical shards of one
+    card (each its own stream), then, where more cards are visible, over
+    the distinct cards. Returns the phase's report."""
+    t_phase = time.perf_counter()
+    logical = (torch.device("cuda", 0),) * MESH_SHARDS
+    cards = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    spans = [("logical", logical)]
+    if len(cards) > 1:
+        spans.append(("cards", cards[:MESH_SHARDS]))
+    log(f"mesh: shards on {len(cards[:MESH_SHARDS]) if len(cards) > 1 else 1} distinct card(s) "
+        f"of {len(cards)} visible; runs {[name for name, _ in spans]}")
+    out = {"distinct_cards": len(cards[:MESH_SHARDS]) if len(cards) > 1 else 1, "runs": {}}
+    for name, devices in spans:
+        run = {}
+        # config 6's shape, against the plain sharded version on the CPU
+        cfg, s0, route, rdelta, hosts, bad, counts = mesh_lockstep(
+            K, cuda, kb, SS_GROUPS, SS_REPLICAS, devices, "sharded")
+        run["lockstep_3072"] = {"lanes": cfg.groups, "windows": MESH_WINDOWS,
+                                "mismatched_fields": bad, "launches": counts}
+        assert not bad, f"mesh lockstep at {cfg.groups} lanes: {bad}"
+        if name == "logical":
+            # BASELINE's scale: 50,000 lanes, against the plain unsharded
+            # super-step on the card; then the sharded super-step's wall and
+            # busy time against the unsharded one's at the same lanes
+            bcfg, b0, broute, brdelta, bhosts, bbad, bcounts = mesh_lockstep(
+                K, cuda, kb, *MESH_BIG, devices, "unsharded")
+            run["lockstep_50k"] = {"lanes": bcfg.groups, "windows": MESH_WINDOWS,
+                                   "mismatched_fields": bbad, "launches": bcounts}
+            assert not bbad, f"mesh lockstep at {bcfg.groups} lanes: {bbad}"
+            for label, sharded in (("unsharded", False), ("sharded", True)):
+                t = time_superstep(K, cuda, kb, bcfg, b0, broute, brdelta, bhosts, sharded)
+                run["lockstep_50k"][label] = t
+                log(f"mesh superstep {label} @ {bcfg.groups} lanes (K={SS_STEPS}"
+                    f"{f', {MESH_SHARDS} shards' if sharded else ''}): wall "
+                    f"{t['wall_ms']:.3f} ms, device {t['device_ms']:.3f} ms, busy "
+                    f"{t['device_busy_ms_per_superstep']} ms of "
+                    f"{t['profiled_wall_ms_per_superstep']:.3f} ms profiled wall, idle share "
+                    f"{t['device_idle_share']}, launches per super-step "
+                    f"{t['launches_per_superstep']} [{card}]")
+        for config in MESH_CONFIGS if name == "logical" else MESH_CONFIGS[:1]:
+            r, launches = phase_mesh_engine(cuda, K, config, devices)
+            run[f"config{config}"] = r
+        out["runs"][name] = run
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2293,6 +2584,12 @@ def main() -> int:
         f"{nat['main']['lincheck_ok']}; on-disk plugin restart {nat['diskkv_restart']}; demos "
         f"{nat['demos']}; phase {nat['seconds']} s [{card}]")
 
+    # ---- phase 10: the sharded path (shard_over_mesh) on logical shards ----
+    mesh = phase_mesh(cuda, K, kb, card)
+    mesh_runs = mesh["runs"]["logical"]
+    log(f"mesh: {MESH_SHARDS} shards on {mesh['distinct_cards']} distinct card(s), phase "
+        f"{mesh['seconds']} s [{card}]")
+
     # the step kernel against its plain version at the shapes the engine
     # ran in phases 5-9 (each already failed on a mismatch)
     shapes = {f"config{c}": r["kernel_vs_plain"] for c, (r, _) in engines.items()
@@ -2303,6 +2600,7 @@ def main() -> int:
     shapes.update({f"longhaul_{n}": lh[n]["kernel_vs_plain"] for n in lh_runs
                    if "kernel_vs_plain" in lh[n]})
     shapes["native"] = nat["main"]["kernel_vs_plain"]
+    shapes["mesh_config6"] = mesh_runs["config6"]["superstep_vs_plain"]
     cases += sum(v["cases"] for v in shapes.values())
     err = max([err] + [v["max_abs_err"] for v in shapes.values()])
     # engine steps of the whole run (config 8: both of its runs)
@@ -2323,6 +2621,16 @@ def main() -> int:
             out[n] = {"launches": r["launches"][name],
                       "per_round": r["launches"][name] / max(1, len(r["rounds"])),
                       "per_engine_step": r["launches"][name] / max(1, inner)}
+        return out
+
+    def mesh_launches(name):
+        # phase 10: the lockstep runs' and the sharded engine's launches
+        out = {f"lockstep_{x}": mesh_runs[f"lockstep_{x}"]["launches"][name]
+               for x in ("3072", "50k")}
+        for c in MESH_CONFIGS:
+            r = mesh_runs[f"config{c}"]
+            out[f"config{c}"] = {"launches": r["launches"][name],
+                                 "per_inner_step": r["launches_per_inner_step"][name]}
         return out
 
     ring = "dragonboat_tpu_torch/csrc/"
@@ -2360,6 +2668,7 @@ def main() -> int:
                    / max(1, nat["main"]["engine_steps_total"]),
                    "diskkv_restart": nat["diskkv_restart"]["launches"]["step_batch"]},
         "longhaul_superstep": lh["k8"]["superstep_vs_plain"],
+        "mesh": mesh_launches("step_batch"),
         "engine_shapes": shapes,
         "ptxas": ptxas["step_batch_kernel"],
         "frame_bytes": frames,
@@ -2380,12 +2689,24 @@ def main() -> int:
             "per_superstep_sharded": per_ss(name, sharded),
             "engine": per_step(name),
             "longhaul": longhaul_launches(name),
+            "mesh": mesh_launches(name),
             "ptxas": ptxas[name + "_kernel"],
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "cases", "bad")},
         })
+    # the gather's main path is the sharded engine's: its launches there
+    gather_row = next(k for k in kernels["kernels"] if k["name"] == "ring_gather")
+    gather_row["launches_phase4"] = gather_row["launches"]
+    gather_row["launches"] = mesh_runs["config6"]["launches"]["ring_gather"]
     kernels["superstep"] = {"unsharded": unsharded, "sharded": sharded,
                             "shards": SS_SHARDS, "card": card}
+    kernels["mesh"] = {
+        "distinct_cards": mesh["distinct_cards"], "seconds": mesh["seconds"], "card": card,
+        "runs": {name: {k: ({x: v for x, v in r.items() if x in E2E_KEYS + (
+            "msgs_in_window", "launches_per_inner_step", "superstep_vs_plain", "shard_over_mesh",
+            "n_devices", "mesh_shape", "padded_groups", "lanes_total")}
+            if k.startswith("config") else r) for k, r in run.items()}
+            for name, run in mesh["runs"].items()}}
     kernels["rebase"] = {"source": "dragonboat_tpu_torch/ops/state.py", "route": "torch ops",
                          "replaces": "dragonboat_tpu/ops/state.py:542", **rebase_res}
     kernels["activation"] = {"source": "dragonboat_tpu_torch/engine/vector.py", "route": "torch ops",

@@ -14,9 +14,10 @@ own code (`dragonboat_tpu_torch/`), not from the JAX package's names:
     `profile.SyncAudit.BLESSED` — and the device roots: the engine's
     tensors on the card (`self._state`, the residual inbox `self._resid`,
     the device staging planes `self._dev_in`/`self._dev_inbox`, the
-    device output planes `self._dev_out`) and the pinned host slots the
-    fetch reads (`self._out_slots`), which are not safe to read before
-    the seam's event wait;
+    device output planes `self._dev_out`, and the sharded engine's
+    per-shard trees and planes under `self._shards`) and the pinned host
+    slots the fetch reads (`self._out_slots`), which are not safe to read
+    before the seam's event waits (one per shard when sharded);
   * the kernel-build family: the one blessed loader `ops/cuda.py:_lib`
     (it builds on first use, under a lock, and caches the library), the
     calls that build or load kernels (`build_kernels`, `ctypes.CDLL`,
@@ -194,6 +195,12 @@ def _default_targets() -> Targets:
         # and the event record (K=1 and K>1)
         (VECTOR, "VectorEngine._ship_output"),
         (VECTOR, "VectorEngine._ship_super"),
+        # the sharded engine's dispatch (one copy and one step or the
+        # sharded super-step per shard), its per-shard ship and the join
+        # of the fetched shard parts
+        (VECTOR, "VectorEngine._run_sharded"),
+        (VECTOR, "VectorEngine._ship_shards"),
+        (VECTOR, "VectorEngine._join_slot"),
         (VECTOR, "VectorEngine._fetch_output"),
         (VECTOR, "VectorEngine._fetch_super"),
         # the pipelined decode of step t-1 while step t runs
@@ -505,6 +512,8 @@ def _default_targets() -> Targets:
             "self._dev_inbox",
             "self._dev_out",
             "self._out_slots",
+            # the sharded engine's per-shard trees and planes
+            "self._shards",
         },
         blessed_build={(CUDA, "_lib")},
         build_calls={

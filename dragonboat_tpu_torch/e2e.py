@@ -452,10 +452,10 @@ def _start_history(workdir: str, hosts):
         return None
 
 
-def _mesh_report(hosts) -> dict:
+def _mesh_report(hosts, shard_over_mesh: bool = False) -> dict:
     """Devices the engine sharded over (1: unsharded), the mesh shape and
-    the padded lanes (bench.py `_mesh_report`; the port's engine does not
-    shard on one card, so `shard_over_mesh` is False)."""
+    the padded lanes (bench.py `_mesh_report`): what the engine reports,
+    beside what the run asked for."""
     n_dev = padded = 0
     if 1 in hosts:
         ss = hosts[1].engine.step_stats()
@@ -463,16 +463,16 @@ def _mesh_report(hosts) -> dict:
         padded = int(ss.get("padded_groups", 0) or 0)
     n_dev = n_dev or 1
     return {
-        "shard_over_mesh": False,
+        "shard_over_mesh": bool(shard_over_mesh),
         "n_devices": n_dev,
         "mesh_shape": [n_dev],
         "padded_groups": padded,
     }
 
 
-def _empty_folds(hosts, read_mode: str) -> dict:
+def _empty_folds(hosts, read_mode: str, shard_over_mesh: bool = False) -> dict:
     """What bench.py's bring-up-failed record carries beside its error."""
-    out = _mesh_report(hosts)
+    out = _mesh_report(hosts, shard_over_mesh)
     out.update(_attribution_report(hosts, None, None))
     out.update(_read_report(hosts, 0, 0.0, read_mode))
     out.update(_census_report(hosts))
@@ -892,7 +892,8 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
               read_mode: str = "readindex", drop_rate: float = 0.0,
               churn: bool = False, steps_per_sync: int = 1,
               through_front: bool = False, tenants: int = 0,
-              device: str = "cuda", warmup_s: float = 2.0,
+              device: str = "cuda", shard_over_mesh: bool = False,
+              warmup_s: float = 2.0,
               election_wait_s: Optional[float] = None, profile_s: float = 1.0,
               window_extend_s: float = 15.0,
               lincheck_groups: int = 8, lincheck_clients: int = 3) -> dict:
@@ -944,6 +945,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
                     share_scope=f"e2e-k{steps_per_sync}-{id(reg)}",
                     profile_sample_ratio=1,
                     device=device,
+                    shard_over_mesh=shard_over_mesh,
                 ),
             ))
         for nid in members:
@@ -980,7 +982,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
             why = "" if loop.is_alive() else " (the engine's loop thread died)"
             base.update(error=f"{groups - len(leaders)} groups never elected{why}",
                         value=0.0, committed=0)
-            base.update(_empty_folds(hosts, read_mode))
+            base.update(_empty_folds(hosts, read_mode, shard_over_mesh))
             return base
         drops = [0]
         if drop_rate > 0:
@@ -1054,6 +1056,10 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
             engine_steps=steps,
             engine_steps_per_s=steps / dt,
             pipelined_steps=stats1["steps_pipelined"] - stats0["steps_pipelined"],
+            # host Message objects built for co-hosted traffic by plane, and
+            # the messages the K>1 super-step routed on the device instead
+            msgs_in_window={k: stats1[k] - stats0[k] for k in (
+                "msgs_replicate", "msgs_broadcast", "msgs_resp", "msgs_routed_device")},
             groups_committed_in_window=len(load.committed_groups),
             elections_in_window=(stats1["elections_started"]
                                  - stats0["elections_started"]),
@@ -1066,7 +1072,7 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
             in_seam_syncs=sync["in_seam"],
             kernel_builds=builds["total"],
         )
-        out.update(_mesh_report(hosts))
+        out.update(_mesh_report(hosts, shard_over_mesh))
         if read_ratio:
             out.update(reads_completed=reads_done,
                        reads_submitted=load.reads_submitted, read_ratio=read_ratio)
@@ -1125,7 +1131,8 @@ def bench_e2e(groups: int, duration_s: float, payload: int, workdir: str,
 
 
 def run_ladder_config(n: int, groups: Optional[int] = None,
-                      duration: Optional[float] = None, device: str = "cuda") -> dict:
+                      duration: Optional[float] = None, device: str = "cuda",
+                      shard_over_mesh: bool = False) -> dict:
     """One BASELINE config (bench.py `_run_ladder_config`): `groups`
     defaults to bench.py's own cut (`LADDER[n]["groups"]`), and the record
     is stamped with the nominal and actual group counts. Config 8 runs
@@ -1150,6 +1157,7 @@ def run_ladder_config(n: int, groups: Optional[int] = None,
                 through_front=spec.get("through_front", False),
                 tenants=spec.get("tenants", 0),
                 device=device,
+                shard_over_mesh=shard_over_mesh,
             )
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -1268,10 +1276,14 @@ def main(argv=None) -> int:
     ap.add_argument("--groups", type=int, default=None,
                     help="the group count (default: the config's nominal one)")
     ap.add_argument("--duration", type=float, default=None)
+    ap.add_argument("--shard-over-mesh", action="store_true",
+                    help="shard each engine's lanes over engine.vector.mesh_devices() "
+                         "(bench.py --shard-over-mesh)")
     args = ap.parse_args(argv)
     r = run_ladder_config(args.config,
                           groups=args.groups or LADDER[args.config]["nominal_groups"],
-                          duration=args.duration, device=args.device)
+                          duration=args.duration, device=args.device,
+                          shard_over_mesh=args.shard_over_mesh)
     r["gate_failures"] = gate_failures(r)
     print(json.dumps(r, default=str))
     return 1 if r["gate_failures"] else 0

@@ -86,7 +86,7 @@ from ..core.raft import _make_metadata_entries, _make_witness_snapshot
 from ..core.rate import ENTRY_OVERHEAD_BYTES
 from ..logger import get_logger
 from ..ops.cuda import _output_layout
-from ..ops.kernel import make_multi_step_fn, step_batch
+from ..ops.kernel import make_multi_step_fn, make_sharded_multi_step_fn, step_batch
 from ..ops.state import (
     CTR,
     CTR_NAMES,
@@ -258,6 +258,42 @@ def write_lane_rows(tree, g: int, rows: Dict[str, object]) -> None:
     or an inbox) with a scalar or a row tensor: ``t[g] = x``."""
     for name, x in rows.items():
         getattr(tree, name)[g] = x
+
+
+# One sharded super-step in flight per process (the reference's
+# _MESH_LAUNCH_MU): a K>1 sharded super-step exchanges records between the
+# shards' streams through events, and two engines of one process that
+# interleave their launches on shared cards would only slow each other.
+# K=1 sharded and every unsharded path have no exchange and never take it.
+_MESH_LAUNCH_MU = threading.Lock()
+
+
+def mesh_devices(device: torch.device) -> Tuple[torch.device, ...]:
+    """The devices `EngineConfig.shard_over_mesh` spreads an engine's lanes
+    over: every visible card when the engine runs on a card and more than
+    one is visible; otherwise none, and the engine stays unsharded, as the
+    JAX package does on one device. Tests and chip_smoke.py replace this
+    function to name logical shards ((cpu,) * 8 on the CPU, (cuda:0,) * 4
+    on one card), as the reference's tests pin eight virtual devices."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return ()
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
+class _Shard:
+    """One lane block of a sharded engine: global lanes [lo, hi) as rows
+    0..hi-lo of its own state tree, residual inbox and device planes, on
+    its own device and (on a card) its own stream."""
+
+    def __init__(self, device: torch.device, lo: int, hi: int) -> None:
+        self.device, self.lo, self.hi = device, lo, hi
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def on(self):
+        """Context that makes the shard's stream (and card) current."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
 
 def _engine_device(name) -> torch.device:
@@ -1063,23 +1099,36 @@ class VectorEngine:
         # small writes) is enqueued on it, so stream order alone orders
         # them; None on the CPU
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
-        # multi-device sharding of the group axis: with one visible card
-        # (or on the CPU) shard_over_mesh is a no-op, as it is for the
-        # JAX package on one device; shards on distinct cards need the
-        # cross-card candidate gather (ROADMAP queue 2, item G)
+        # multi-device: shard the group axis over mesh_devices() in
+        # contiguous lane blocks (the reference's NamedSharding(P("groups"))):
+        # global lane g lives on shard g // Gl, row g % Gl; with one device
+        # shard_over_mesh is a no-op, as it is for the JAX package
         self._mesh_devices = 0  # 0 = unsharded single-device engine
+        self._shards: Optional[List[_Shard]] = None
         groups_requested = self.kcfg.groups
-        if (
-            ecfg is not None
-            and getattr(ecfg, "shard_over_mesh", False)
-            and self._cuda
-            and torch.cuda.device_count() > 1
-        ):
-            raise NotImplementedError(
-                "shard_over_mesh across several CUDA devices needs the "
-                "multi-card candidate gather (ROADMAP queue 2, item G)"
-            )
+        devs = (
+            mesh_devices(self.device)
+            if ecfg is not None and getattr(ecfg, "shard_over_mesh", False)
+            else ()
+        )
+        if len(devs) > 1:
+            if any(d.type != self.device.type for d in devs):
+                raise ValueError(
+                    f"mesh devices {devs} do not match the engine's {self.device}"
+                )
+            n = len(devs)
+            # round UP to a device multiple so every shard holds the same
+            # block; stamped in step_stats (padded_groups, mesh_devices),
+            # and the ghost lanes are never handed out by the allocator
+            self.kcfg = self.kcfg._replace(groups=-(-self.kcfg.groups // n) * n)
+            Gl = self.kcfg.groups // n
+            self._shards = [
+                _Shard(_engine_device(d), i * Gl, (i + 1) * Gl)
+                for i, d in enumerate(devs)
+            ]
+            self._mesh_devices = n
         self._groups_requested = groups_requested
+        self._padded_groups = self.kcfg.groups - groups_requested
         self.clock = _SharedClock()
         # device-resident multi-step: K protocol steps per kernel launch
         # (EngineConfig.steps_per_sync). K=1 keeps the classic one-step
@@ -1134,9 +1183,8 @@ class VectorEngine:
             # between inner steps (zero host Message objects each)
             "msgs_routed_device": 0,
             # sharded mesh: ghost lanes added by a device-multiple
-            # round-up (none: the port does not shard) and the mesh
-            # width — static stamps, not counters
-            "padded_groups": 0,
+            # round-up and the mesh width — static stamps, not counters
+            "padded_groups": self._padded_groups,
             "mesh_devices": self._mesh_devices,
             # K=1 overlap: steps decoded while the next step was already
             # dispatched (the rest were drained by _flush_pending)
@@ -1186,11 +1234,27 @@ class VectorEngine:
         self._m_resid = np.zeros(G, np.int32)
         self._pending_rep_copies: list = []
         self._routes_dirty = True
-        with self._on_stream():
+        if self._shards is not None:
+            # every shard its own state tree (and residual inbox), allocated
+            # on its own stream; the engine's _state stays unset
+            Gl = self.kcfg.groups // self._mesh_devices
+            lcfg = self.kcfg._replace(groups=Gl)
+            for sh in self._shards:
+                with sh.on():
+                    sh.state = init_state(lcfg, device=sh.device)
+                    if self._multi > 1:
+                        sh.resid = make_empty_inbox(lcfg, device=sh.device)
             if self._multi > 1:
-                self._multi_fn = make_multi_step_fn(self.kcfg, self._multi)
-                self._resid = make_empty_inbox(self.kcfg, device=self.device)
-            self._state: RaftTensors = init_state(self.kcfg, device=self.device)
+                self._multi_fn = make_sharded_multi_step_fn(
+                    self.kcfg, self._multi,
+                    tuple(sh.device for sh in self._shards),
+                )
+        else:
+            with self._on_stream():
+                if self._multi > 1:
+                    self._multi_fn = make_multi_step_fn(self.kcfg, self._multi)
+                    self._resid = make_empty_inbox(self.kcfg, device=self.device)
+                self._state: RaftTensors = init_state(self.kcfg, device=self.device)
         # lanes keyed by (host, cluster_id): a SHARED core hosts replicas
         # from several NodeHosts (hosts = handle ids), so cluster_id alone
         # does not identify a lane
@@ -1256,20 +1320,21 @@ class VectorEngine:
         # the logical log fill from the decode-maintained mirrors, so
         # reading the census costs zero device syncs at any point
         self.census = DeviceCensus()
-        planes = {
-            f"state.{name}": int(arr.nbytes)
-            for name, arr in self._state._asdict().items()
-        }
+        trees = [("state", t) for t in self._states()]
         if self._multi > 1:
-            for name, arr in self._resid._asdict().items():
-                planes[f"resid.{name}"] = int(arr.nbytes)
+            trees += [("resid", t) for t in self._resids()]
+        planes: Dict[str, int] = {}
+        for kind, tree in trees:
+            for name, arr in tree._asdict().items():
+                key = f"{kind}.{name}"
+                planes[key] = planes.get(key, 0) + int(arr.nbytes)
         staging = sum(
             int(host.bytes.nbytes) for _b, _t, _i, host in self._bufsets
         )
         self.census.set_planes(
             planes,
             log_planes=("state.log_term", "state.log_is_cc"),
-            devices=1,
+            devices=max(1, self._mesh_devices),
             log_window=self.kcfg.log_window,
             host_staging_bytes=staging,
         )
@@ -1336,10 +1401,25 @@ class VectorEngine:
             self._np_route = self._bufsets[0][3].np["route"]
             self._np_rdelta = self._bufsets[0][3].np["rdelta"]
             self._np_route.fill(-1)
-        with self._on_stream():
-            self._dev_in = _Planes(layout, self.device)
-        t = self._dev_in.t
-        self._dev_inbox = Inbox(**{f: t[f] for f in Inbox._fields})
+        if self._shards is not None:
+            # per shard: device planes of its Gl lanes and, on the card, a
+            # pinned copy of its slice of each host buffer set (filled at
+            # dispatch, then ONE host->device copy per shard)
+            Gl = G // self._mesh_devices
+            llayout = [(f, (Gl,) + shape[1:], dt) for f, shape, dt in layout]
+            for sh in self._shards:
+                with sh.on():
+                    sh.dev_in = _Planes(llayout, sh.device)
+                sh.dev_inbox = Inbox(**{f: sh.dev_in.t[f] for f in Inbox._fields})
+                sh.host_ins = (
+                    [_Planes(llayout, "cpu", pin=True) for _ in self._bufsets]
+                    if self._cuda else None
+                )
+        else:
+            with self._on_stream():
+                self._dev_in = _Planes(layout, self.device)
+            t = self._dev_in.t
+            self._dev_inbox = Inbox(**{f: t[f] for f in Inbox._fields})
         self._buf_idx = 0
         self._buf, self._ticks, self._host_inbox, self._host_in = self._bufsets[0]
         # fetch side: the K=1 step writes its StepOutput into views of one
@@ -1349,28 +1429,58 @@ class VectorEngine:
         # on. At K>1 one slot holds the stacked outputs, plans and the
         # residual occupancy of a super-step.
         R = self.kcfg.readindex_depth
-        out_layout = [
-            (f, shape, dt) for f, shape, dt in _output_layout(G, P, K, R)
-        ]
-        if self._multi > 1:
-            Kt = self._multi
-            out_layout = [
-                (f, (Kt,) + shape, dt) for f, shape, dt in out_layout
-            ] + [
-                ("plan_" + f, (Kt,) + shape, torch.bool)
-                for f, shape in zip(
-                    RoutePlan._fields,
-                    [(G, P)] * 4 + [(G, K), (G, R)],
-                )
-            ] + [("resid_count", (G,), i32)]
+
+        def out_layout_of(G):
+            lay = [
+                (f, shape, dt) for f, shape, dt in _output_layout(G, P, K, R)
+            ]
+            if self._multi > 1:
+                Kt = self._multi
+                lay = [
+                    (f, (Kt,) + shape, dt) for f, shape, dt in lay
+                ] + [
+                    ("plan_" + f, (Kt,) + shape, torch.bool)
+                    for f, shape in zip(
+                        RoutePlan._fields,
+                        [(G, P)] * 4 + [(G, K), (G, R)],
+                    )
+                ] + [("resid_count", (G,), i32)]
+            return lay
+
         self._dev_out = None
-        if self._multi == 1 and self._cuda:
-            with self._on_stream():
-                self._dev_out = _Planes(out_layout, self.device)
-        self._out_slots = [
-            _Planes(out_layout, "cpu", pin=self._cuda)
-            for _ in range(1 if self._multi > 1 else 2)
-        ]
+        n_slots = 1 if self._multi > 1 else 2
+        if self._shards is not None:
+            # per shard: device output planes (on the card, at K=1 and at
+            # K>1) and its part of each pinned host slot, so that ONE
+            # device->host copy per shard lands its outputs
+            lout = out_layout_of(G // self._mesh_devices)
+            for sh in self._shards:
+                # the step's (K=1) or the super-step's (K>1: `into`)
+                # output trees over the device planes; None on the CPU,
+                # whose steps return fresh trees
+                sh.dev_out = sh.outs = sh.plans = None
+                if self._cuda:
+                    with sh.on():
+                        sh.dev_out = _Planes(lout, sh.device)
+                    t = sh.dev_out.t
+                    sh.outs = StepOutput(**{f: t[f] for f in StepOutput._fields})
+                    if self._multi > 1:
+                        sh.plans = RoutePlan(
+                            **{f: t["plan_" + f] for f in RoutePlan._fields}
+                        )
+            self._out_slots = [
+                [_Planes(lout, "cpu", pin=self._cuda) for _ in self._shards]
+                for _ in range(n_slots)
+            ]
+        else:
+            out_layout = out_layout_of(G)
+            if self._multi == 1 and self._cuda:
+                with self._on_stream():
+                    self._dev_out = _Planes(out_layout, self.device)
+            self._out_slots = [
+                _Planes(out_layout, "cpu", pin=self._cuda)
+                for _ in range(n_slots)
+            ]
         self._out_idx = 0
         # columnar row staging for _pack: rows accumulate as python column
         # lists and land in the numpy planes as ONE fancy-indexed scatter
@@ -1388,6 +1498,52 @@ class VectorEngine:
         if self._stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
+
+    # ------------------------------------------------- the shards' trees
+    def _states(self) -> List[RaftTensors]:
+        """The device state: one tree, or one per shard."""
+        if self._shards is None:
+            return [self._state]
+        return [sh.state for sh in self._shards]
+
+    def _resids(self) -> List[Inbox]:
+        if self._shards is None:
+            return [self._resid]
+        return [sh.resid for sh in self._shards]
+
+    def _state_of(self, sh: Optional[_Shard]) -> RaftTensors:
+        """The state tree of shard sh (the engine's when None)."""
+        return self._state if sh is None else sh.state
+
+    def _shard_of(self, g: int) -> Optional[_Shard]:
+        """The shard that holds lane g (None when unsharded)."""
+        if self._shards is None:
+            return None
+        return self._shards[g // (self.kcfg.groups // self._mesh_devices)]
+
+    @staticmethod
+    def _on_shard(sh: Optional[_Shard]):
+        """Context that makes shard sh's stream current (a no-op when None:
+        the loop thread's stream is the engine's)."""
+        return contextlib.nullcontext() if sh is None else sh.on()
+
+    def _lane_rows(self, g: int):
+        """(state tree, residual inbox or None, row, stream context) of lane
+        g: its shard's trees and its row there when sharded."""
+        sh = self._shard_of(g)
+        if sh is None:
+            return self._state, getattr(self, "_resid", None), g, self._on_shard(None)
+        return sh.state, getattr(sh, "resid", None), g - sh.lo, sh.on()
+
+    def _blocks(self, *arrays):
+        """Per shard (or once, unsharded): (shard or None, stream context,
+        each host array's rows of that shard)."""
+        if self._shards is None:
+            return [(None, self._on_shard(None), arrays)]
+        return [
+            (sh, sh.on(), tuple(a[sh.lo:sh.hi] for a in arrays))
+            for sh in self._shards
+        ]
 
     def _alloc_mirrors(self) -> None:
         """Whole-G numpy mirrors of per-lane protocol state, refreshed from
@@ -1634,7 +1790,11 @@ class VectorEngine:
             want = np.ones(self.kcfg.groups, bool)
         if not np.array_equal(want, self._m_clock_ok):
             self._m_clock_ok = want
-            self._state.clock_ok.copy_(torch.from_numpy(want))
+            for sh, ctx, (w,) in self._blocks(want):
+                with ctx:
+                    self._state_of(sh).clock_ok.copy_(
+                        torch.from_numpy(np.ascontiguousarray(w))
+                    )
 
     def set_local_drop_hook(self, hook) -> None:
         """Install a chaos drop predicate over co-hosted delivery
@@ -1815,6 +1975,9 @@ class VectorEngine:
         # arrays, rebuilt host-side only when lane topology changes); the
         # device planes are views of the buffer it lands in
         prof.start()
+        if self._shards is not None:
+            self._run_sharded(work, packs)
+            return
         dev_in = self._dev_in
         dev_in.bytes.copy_(self._host_in.bytes, non_blocking=self._cuda)
         tarr = dev_in.t["ticks"]
@@ -1853,6 +2016,103 @@ class VectorEngine:
         else:
             self._decode(work, packs, self._fetch_output(slot))
 
+    def _run_sharded(self, work, packs) -> None:
+        """_run_once's dispatch and fetch over the shards: ONE host->device
+        copy per shard from its slice of the host buffer set, on its stream;
+        at K=1 one step_batch per shard (no exchange, as in the reference's
+        K=1 program over the mesh), at K>1 the sharded super-step with its
+        candidate exchange; then ONE device->host copy per shard into its
+        part of the pinned slot, with one event per shard."""
+        prof = self.profiler
+        shards = self._shards
+        host = self._host_in.np
+        for sh in shards:
+            stage = sh.dev_in if sh.host_ins is None else sh.host_ins[self._buf_idx]
+            for f, a in stage.np.items():
+                a[...] = host[f][sh.lo:sh.hi]
+            if sh.host_ins is not None:
+                # lint: allow(locks/lock-in-hot-loop) a CUDA stream context, not a
+                # lock: one per shard per step
+                with sh.on():
+                    sh.dev_in.bytes.copy_(stage.bytes, non_blocking=True)
+        if self._multi > 1:
+            kw = {}
+            if self._cuda:
+                kw = dict(streams=[sh.stream for sh in shards],
+                          into=[(sh.outs, sh.plans) for sh in shards])
+            with _MESH_LAUNCH_MU:
+                states, outs, plans, resids, rcs = self._multi_fn(
+                    [sh.state for sh in shards], [sh.dev_inbox for sh in shards],
+                    [sh.dev_in.t["ticks"] for sh in shards],
+                    [sh.resid for sh in shards],
+                    [sh.dev_in.t["route"] for sh in shards],
+                    [sh.dev_in.t["rdelta"] for sh in shards],
+                    **kw,
+                )
+                for sh, st, r in zip(shards, states, resids):
+                    sh.state, sh.resid = st, r
+                slot = self._ship_super(outs, plans, rcs)
+                prof.end("dispatch")
+                o, pl, rc = self._fetch_super(slot)
+            self._m_resid = rc
+            self._decode_super(work, packs, o, pl)
+            return
+        outs = []
+        for sh in shards:
+            # lint: allow(locks/lock-in-hot-loop) a CUDA stream context, not a
+            # lock: one per shard per step
+            with sh.on():
+                sh.state, out = step_batch(
+                    sh.state, sh.dev_inbox, sh.dev_in.t["ticks"], self.kcfg,
+                    out=sh.outs,
+                )
+            outs.append(out)
+        slot = self._ship_output(outs)
+        prof.end("dispatch")
+        if self._overlap:
+            # pipelined as the unsharded path (see _run_once)
+            pending, self._pending = self._pending, (work, packs, slot)
+            if pending is not None:
+                self._sstats["steps_pipelined"] += 1
+            self._flush_one(pending)
+        else:
+            self._decode(work, packs, self._fetch_output(slot))
+
+    def _ship_shards(self, planes) -> tuple:
+        """Sharded ship: `planes[i]` maps slot plane names to shard i's
+        tensors (on the card: those its device output planes do not hold
+        yet, copied into them first). ONE device->host copy per shard into
+        its part of the next pinned slot and an event on its stream; on the
+        CPU a copy per plane. Returns (slot, events)."""
+        slot = self._next_slot()
+        evs = []
+        for sh, part, named in zip(self._shards, slot, planes):
+            if not self._cuda:
+                for f, x in named.items():
+                    part.t[f].copy_(x)
+                continue
+            # lint: allow(locks/lock-in-hot-loop) a CUDA stream context, not a
+            # lock: one per shard per step
+            with sh.on():
+                for f, x in named.items():
+                    sh.dev_out.t[f].copy_(x)
+                part.bytes.copy_(sh.dev_out.bytes, non_blocking=True)
+            ev = torch.cuda.Event()
+            # lint: allow(telemetry/unguarded) torch.cuda.Event.record, not
+            # telemetry: one marker per shard per step, the fetch seam's
+            ev.record(sh.stream)
+            evs.append(ev)
+        return slot, evs
+
+    def _join_slot(self, slot) -> Dict[str, np.ndarray]:
+        """The whole-G planes of a sharded slot: each plane's shard parts
+        joined along the lane axis (axis 1 of the stacked K>1 planes)."""
+        out = {}
+        for f in slot[0].np:
+            ax = 1 if self._multi > 1 and f != "resid_count" else 0
+            out[f] = np.concatenate([p.np[f] for p in slot], axis=ax)
+        return out
+
     def _next_slot(self):
         slot = self._out_slots[self._out_idx]
         self._out_idx = (self._out_idx + 1) % len(self._out_slots)
@@ -1863,6 +2123,10 @@ class VectorEngine:
         on the card ONE async copy of the device output buffer (the step
         wrote its planes into views of it), then an event; on the CPU a
         copy per plane. Returns (slot, event); the fetch waits."""
+        if self._shards is not None:
+            return self._ship_shards(
+                [dict(zip(StepOutput._fields, o)) for o in out]
+            )
         slot = self._next_slot()
         if self._cuda:
             slot.bytes.copy_(self._dev_out.bytes, non_blocking=True)
@@ -1879,7 +2143,20 @@ class VectorEngine:
     def _ship_super(self, outs: StepOutput, plans: RoutePlan, resid_count):
         """The K>1 twin of _ship_output: the stacked per-step outputs, the
         per-step route plans and the residual occupancy land in ONE pinned
-        host buffer (async copies per plane, one event)."""
+        host buffer (async copies per plane, one event). Sharded: one
+        copy per shard (_ship_shards); `outs`, `plans` and `resid_count`
+        then hold one tree per shard."""
+        if self._shards is not None:
+            named = []
+            for o, p, rc in zip(outs, plans, resid_count):
+                # on the card the super-step wrote outs and plans into
+                # the shard's device output planes (`into`)
+                d = {} if self._cuda else dict(zip(StepOutput._fields, o))
+                if not self._cuda:
+                    d.update(("plan_" + f, x) for f, x in zip(RoutePlan._fields, p))
+                d["resid_count"] = rc
+                named.append(d)
+            return self._ship_shards(named)
         slot = self._next_slot()
         t = slot.t
         nb = self._cuda
@@ -1908,6 +2185,13 @@ class VectorEngine:
         prof = self.profiler
         prof.start()
         slot, ev = pending
+        if self._shards is not None:
+            # one event per shard; still ONE blessed seam
+            for e in ev:
+                e.synchronize()
+            note_seam_sync()
+            prof.end("fetch")
+            return self._join_slot(slot)
         if ev is not None:
             ev.synchronize()
         note_seam_sync()  # runtime sync audit: the ONE blessed transfer
@@ -1923,6 +2207,15 @@ class VectorEngine:
         prof = self.profiler
         prof.start()
         slot, ev = pending
+        if self._shards is not None:
+            for e in ev:
+                e.synchronize()
+            note_seam_sync()  # one seam per super-step, whatever n
+            prof.end("fetch")
+            n = self._join_slot(slot)
+            o = {f: n[f] for f in StepOutput._fields}
+            pl = {f: n["plan_" + f] for f in RoutePlan._fields}
+            return o, pl, n["resid_count"].astype(np.int32)
         if ev is not None:
             ev.synchronize()
         note_seam_sync()  # runtime sync audit: one transfer per K steps
@@ -3136,9 +3429,10 @@ class VectorEngine:
         if int(self._m_role[g]) != ROLE.LEADER:
             return
         b = int(self._m_base[g])
-        s = self._state
-        s.rstate[g, p] = RSTATE.SNAPSHOT
-        s.snap_sent[g, p] = 1
+        s, _resid, row, ctx = self._lane_rows(g)
+        with ctx:
+            s.rstate[row, p] = RSTATE.SNAPSHOT
+            s.snap_sent[row, p] = 1
         start = m.hint + 1
         goal = self._last_real(g)
         first, last = lane.node.log_reader.get_range()
@@ -3210,7 +3504,9 @@ class VectorEngine:
         # snapshot or the peer wedges in SNAPSHOT state forever
         g = lane.g
         dev_idx = max(int(ss.index - self._m_base[g]), 0)
-        self._state.snap_sent[g, p] = dev_idx
+        s, _resid, row, ctx = self._lane_rows(g)
+        with ctx:
+            s.snap_sent[row, p] = dev_idx
         lane.snap_inflight[p] = (self.clock.tick, ss.index)
         self._snapfb.add(lane)
 
@@ -3404,9 +3700,14 @@ class VectorEngine:
                 adv_term[g] = applied_term
         if adv_mask.any():
             # whole-G masked update in place: one shape whatever the number
-            # of advancing lanes, shipped in one host->device copy
-            adv = self._h2d(np.stack([adv_mask, adv_first, adv_term]).astype(np.int32))
-            advance_compaction(self._state, adv[0].bool(), adv[1], adv[2])
+            # of advancing lanes, shipped in one host->device copy (per
+            # shard with advancing lanes when sharded)
+            for sh, ctx, (m, f, t) in self._blocks(adv_mask, adv_first, adv_term):
+                if not m.any():
+                    continue
+                with ctx:
+                    adv = self._h2d(np.stack([m, f, t]).astype(np.int32), sh)
+                    advance_compaction(self._state_of(sh), adv[0].bool(), adv[1], adv[2])
         if bool(np.any(o["last_index"] > _REBASE_THRESHOLD)):
             # never rebase under an in-flight step: the mirrors and the
             # pending output would disagree by the rebase delta. The
@@ -3432,18 +3733,26 @@ class VectorEngine:
                 self._m_commit[g] -= d
                 self._m_last[g] -= d
         if delta.any():
-            d_dev = self._h2d(delta)
-            self._state = rebase(self._state, d_dev)
             # window bases moved: the routing table's per-peer base
             # deltas must be recomputed before the next dispatch
             self._routes_dirty = True
-            if self._multi > 1 and self._m_resid.any():
-                # the device-resident residual inbox carries indexes in
-                # DESTINATION units: shift the index-valued fields of
-                # each parked message by its destination lane's delta
-                # (type-aware, mirroring which fields _pack_wire stages
-                # per message type). Rare path — eager device ops.
-                rebase_resid(self._resid, d_dev)
+            for sh, ctx, (d, parked) in self._blocks(delta, self._m_resid):
+                if not d.any():
+                    continue
+                with ctx:
+                    d_dev = self._h2d(d, sh)
+                    if sh is None:
+                        self._state = rebase(self._state, d_dev)
+                    else:
+                        sh.state = rebase(sh.state, d_dev)
+                    if self._multi > 1 and parked.any():
+                        # the device-resident residual inbox carries
+                        # indexes in DESTINATION units: shift the
+                        # index-valued fields of each parked message by
+                        # its destination lane's delta (type-aware,
+                        # mirroring which fields _pack_wire stages per
+                        # message type). Rare path — eager device ops.
+                        rebase_resid(self._resid if sh is None else sh.resid, d_dev)
 
     # ----------------------------------------------------------- reconciles
     def _apply_reconciles(self) -> None:
@@ -3492,7 +3801,10 @@ class VectorEngine:
         if cc_clear:
             mask = np.zeros((self.kcfg.groups,), bool)
             mask[cc_clear] = True
-            clear_pending_cc(self._state, self._h2d(mask))
+            for sh, ctx, (m,) in self._blocks(mask):
+                if m.any():
+                    with ctx:
+                        clear_pending_cc(self._state_of(sh), self._h2d(m, sh))
 
     def _lane_of(self, node) -> Optional[_Lane]:
         lane = node._vec_lane
@@ -3719,15 +4031,17 @@ class VectorEngine:
         ("log_is_cc", bool),
     )
 
-    def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On the card the bytes
-        are staged in pinned memory and copied asynchronously on the
-        engine's stream (the pinned block is not reused before the copy
-        ran), so the rare-path writes never wait for the step in flight."""
+    def _h2d(self, a: np.ndarray, sh: Optional[_Shard] = None) -> torch.Tensor:
+        """A host array on the engine's device (shard sh's, under its
+        stream context, when given). On the card the bytes are staged in
+        pinned memory and copied asynchronously on the current stream (the
+        pinned block is not reused before the copy ran), so the rare-path
+        writes never wait for the step in flight."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         if not self._cuda:
             return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+        dev = self.device if sh is None else sh.device
+        return t.pin_memory().to(dev, non_blocking=True)
 
     def _activate_batch(self, lanes: List[_Lane]) -> None:
         """Activate many lanes with ONE index_put_ per plane
@@ -3750,29 +4064,46 @@ class VectorEngine:
                 lane.active = True
         if not vals:
             return
+        if self._shards is None:
+            self._activate_rows(None, gs, vals)
+        else:
+            # one batch per shard that holds lanes of this one, in its rows
+            Gl = self.kcfg.groups // self._mesh_devices
+            by_shard: Dict[int, Tuple[list, list]] = {}
+            for g, v in zip(gs, vals):
+                rows, vs = by_shard.setdefault(g // Gl, ([], []))
+                rows.append(g % Gl)
+                vs.append(v)
+            for i, (rows, vs) in sorted(by_shard.items()):
+                self._activate_rows(self._shards[i], rows, vs)
+        self._routes_dirty = True
+        self._ready.set()
+
+    def _activate_rows(self, sh: Optional[_Shard], rows: List[int], vals: List[dict]) -> None:
+        """One activate_lanes batch into one state tree (the engine's, or
+        shard sh's, whose `rows` are lane rows of that shard)."""
         n = len(vals)
         bucket = 1
         while bucket < n:
             bucket *= 4
-        bucket = min(bucket, self.kcfg.groups)
+        bucket = min(bucket, self.kcfg.groups if sh is None else sh.hi - sh.lo)
         pad = bucket - n
         # padding repeats the last lane (duplicate scatter indexes with
         # identical values are order-independent)
-        gi = np.asarray(gs + [gs[-1]] * pad, np.int64)
-        v = {}
-        for key, dtype in self._ACT_COLS:
-            a = np.asarray([x[key] for x in vals], dtype)
-            if pad:
-                a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
-            v[key] = self._h2d(a)
-        for key, dtype in self._ACT_MATS:
-            a = np.stack([x[key] for x in vals]).astype(dtype)
-            if pad:
-                a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
-            v[key] = self._h2d(a)
-        activate_lanes(self._state, self._h2d(gi), v)
-        self._routes_dirty = True
-        self._ready.set()
+        gi = np.asarray(rows + [rows[-1]] * pad, np.int64)
+        with self._on_shard(sh):
+            v = {}
+            for key, dtype in self._ACT_COLS:
+                a = np.asarray([x[key] for x in vals], dtype)
+                if pad:
+                    a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                v[key] = self._h2d(a, sh)
+            for key, dtype in self._ACT_MATS:
+                a = np.stack([x[key] for x in vals]).astype(dtype)
+                if pad:
+                    a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                v[key] = self._h2d(a, sh)
+            activate_lanes(self._state_of(sh), self._h2d(gi, sh), v)
 
     def _logdb_state(self, node) -> State:
         st, _ = node.log_reader.node_state()
@@ -3786,7 +4117,9 @@ class VectorEngine:
                 # racing a graceful stop): freeing g twice would hand the
                 # same lane index to two tenants
                 return
-        write_lane_rows(self._state, g, {"active": False})
+        state, resid, row, ctx = self._lane_rows(g)
+        with ctx:
+            write_lane_rows(state, row, {"active": False})
         lane.active = False
         # zero the freed lane's host planes so nothing leaks into the next
         # tenant of g: the inbox staging rows of BOTH buffer sets (the
@@ -3822,7 +4155,8 @@ class VectorEngine:
         # residual rows or pending payload copies to the next tenant
         self._m_resid[g] = 0
         if self._multi > 1:
-            write_lane_rows(self._resid, g, {"mtype": MSG.NONE})
+            with self._on_shard(self._shard_of(g)):
+                write_lane_rows(resid, row, {"mtype": MSG.NONE})
             self._pending_rep_copies = [
                 c
                 for c in self._pending_rep_copies
@@ -3855,16 +4189,19 @@ class VectorEngine:
         P = self.kcfg.peers
         g = lane.g
         perm = lane.set_slots(member_ids)
-        s = self._state
+        # the lane's shard and its row there when sharded: every device op
+        # of this reconcile runs on that shard's stream
+        s, _resid, r, ctx = self._lane_rows(g)
         # the lane's current per-peer rows and reference scalars in ONE
         # device->host read (a membership change is a rare path)
         i32 = torch.int32
-        host = torch.cat([
-            s.match[g], s.next[g], s.rstate[g], s.snap_sent[g],
-            s.ract[g].to(i32), s.vresp[g].to(i32), s.vgrant[g].to(i32),
-            torch.stack([s.last_index[g], s.leader[g], s.vote[g],
-                         s.transfer_to[g]]),
-        ]).cpu().numpy()
+        with ctx:
+            host = torch.cat([
+                s.match[r], s.next[r], s.rstate[r], s.snap_sent[r],
+                s.ract[r].to(i32), s.vresp[r].to(i32), s.vgrant[r].to(i32),
+                torch.stack([s.last_index[r], s.leader[r], s.vote[r],
+                             s.transfer_to[r]]),
+            ]).cpu().numpy()
         cur = {
             name: host[i * P:(i + 1) * P]
             for i, name in enumerate((
@@ -3923,35 +4260,37 @@ class VectorEngine:
         if self_slot < 0:
             self_slot = lane.slot_of(node.node_id(), provisional=True)
         new_leader = remap_ref(cur_leader)
-        # self-promotion: an observer added as a full member becomes a
-        # follower in place, inheriting its replicated log (cf. raft.go
-        # addNode / scalar Raft.add_node become_follower path)
-        if (
-            int(self._m_role[g]) == ROLE.OBSERVER
-            and node.node_id() in mem.addresses
-        ):
-            self._m_role[g] = ROLE.FOLLOWER
-            write_lane_rows(s, g, {"role": ROLE.FOLLOWER})
-        # the new per-peer rows in ONE host->device copy
-        names = ("member", "voting", "observer", "witness", "match", "next",
-                 "rstate", "ract", "snap_sent", "vresp", "vgrant")
-        vals = (member, voting, observer, witness, match, nxt, rstate, ract,
-                snap_sent, vresp, vgrant)
-        dev = self._h2d(np.stack([np.asarray(x, np.int32) for x in vals]))
-        rows = {
-            name: dev[i].to(getattr(s, name).dtype)
-            for i, name in enumerate(names)
-        }
-        rows.update(
-            self_slot=max(self_slot, 0),
-            leader=new_leader,
-            vote=remap_ref(cur_vote),
-            transfer_to=remap_ref(cur_transfer),
-            # ack bitmasks are slot-indexed: clear and let heartbeats
-            # re-confirm (membership changes are rare)
-            ri_acks=0,
-        )
-        write_lane_rows(s, g, rows)
+        with self._on_shard(self._shard_of(g)):
+            # self-promotion: an observer added as a full member becomes a
+            # follower in place, inheriting its replicated log (cf. raft.go
+            # addNode / scalar Raft.add_node become_follower path)
+            if (
+                int(self._m_role[g]) == ROLE.OBSERVER
+                and node.node_id() in mem.addresses
+            ):
+                self._m_role[g] = ROLE.FOLLOWER
+                write_lane_rows(s, r, {"role": ROLE.FOLLOWER})
+            # the new per-peer rows in ONE host->device copy
+            names = ("member", "voting", "observer", "witness", "match", "next",
+                     "rstate", "ract", "snap_sent", "vresp", "vgrant")
+            vals = (member, voting, observer, witness, match, nxt, rstate, ract,
+                    snap_sent, vresp, vgrant)
+            dev = self._h2d(np.stack([np.asarray(x, np.int32) for x in vals]),
+                            self._shard_of(g))
+            rows = {
+                name: dev[i].to(getattr(s, name).dtype)
+                for i, name in enumerate(names)
+            }
+            rows.update(
+                self_slot=max(self_slot, 0),
+                leader=new_leader,
+                vote=remap_ref(cur_vote),
+                transfer_to=remap_ref(cur_transfer),
+                # ack bitmasks are slot-indexed: clear and let heartbeats
+                # re-confirm (membership changes are rare)
+                ri_acks=0,
+            )
+            write_lane_rows(s, r, rows)
         self._m_leader[g] = new_leader
         # catchup/snapshot-feedback mirrors use slots: remap
         remapped = {}
@@ -4013,38 +4352,40 @@ class VectorEngine:
         self_slot = lane.self_slot()
         if self_slot < 0:
             self_slot = lane.slot_of(node.node_id(), provisional=True)
-        s = self._state
-        # the lane may carry the snapshot sender's (higher) term, adopted
-        # in _handle_install_snapshot; the restore ack must not be
-        # droppable as stale by the leader
-        term = max(int(s.term[g].item()), ss.term, lane.adopted_term)
-        lane.adopted_term = 0
-        dev = self._h2d(np.stack([member, voting, observer, witness]))
-        write_lane_rows(s, g, dict(
-            member=dev[0],
-            voting=dev[1],
-            observer=dev[2],
-            witness=dev[3],
-            self_slot=max(self_slot, 0),
-            term=term,
-            first_index=1,
-            marker_term=ss.term,
-            last_index=0,
-            committed=0,
-            processed=0,
-            applied=0,
-            unsaved_from=1,
-            log_term=0,
-            log_is_cc=False,
-            match=0,
-            next=1,
-            rstate=RSTATE.RETRY,
-            snap_sent=0,
-            ri_ctx=0,
-            ri_index=0,
-            ri_acks=0,
-            ri_count=0,
-        ))
+        s, _resid, r, ctx = self._lane_rows(g)
+        with ctx:
+            # the lane may carry the snapshot sender's (higher) term, adopted
+            # in _handle_install_snapshot; the restore ack must not be
+            # droppable as stale by the leader
+            term = max(int(s.term[r].item()), ss.term, lane.adopted_term)
+            lane.adopted_term = 0
+            dev = self._h2d(np.stack([member, voting, observer, witness]),
+                            self._shard_of(g))
+            write_lane_rows(s, r, dict(
+                member=dev[0],
+                voting=dev[1],
+                observer=dev[2],
+                witness=dev[3],
+                self_slot=max(self_slot, 0),
+                term=term,
+                first_index=1,
+                marker_term=ss.term,
+                last_index=0,
+                committed=0,
+                processed=0,
+                applied=0,
+                unsaved_from=1,
+                log_term=0,
+                log_is_cc=False,
+                match=0,
+                next=1,
+                rstate=RSTATE.RETRY,
+                snap_sent=0,
+                ri_ctx=0,
+                ri_index=0,
+                ri_acks=0,
+                ri_count=0,
+            ))
         # ---- numpy mirrors ------------------------------------------------
         self._m_base[g] = ss.index
         self._m_devfirst[g] = 1

@@ -15,7 +15,8 @@ It also builds the config-6 super-step cluster (`superstep_cluster`,
 `host_window`, `compact`): config 2's 1024 groups x 3 replicas co-hosted in
 one state of 3072 lanes, driven K=8 inner steps per super-step, with the
 byte counts of the router and gather kernels (`route_columns_bytes`,
-`route_index_bytes`, `route_scatter_bytes`, `ring_gather_bytes`) and a
+`route_index_bytes`, `route_scatter_bytes`, `ring_gather_bytes` and, per
+destination, `ring_gather_dest_bytes`) and a
 seeded random router case (`random_route_case`).
 """
 from __future__ import annotations
@@ -437,6 +438,12 @@ def ring_gather_bytes(n: int, words: int) -> int:
     """n records of `words` i32 read once, n stacks of n records written
     once."""
     return 4 * n * words + 4 * n * n * words
+
+
+def ring_gather_dest_bytes(n: int, words: int) -> int:
+    """One destination's gather: the n records of `words` i32 read once,
+    its stack of n records written once."""
+    return 2 * 4 * n * words
 
 
 def random_route_case(rng: np.random.Generator, cfg: KernelConfig):

@@ -25,14 +25,16 @@ launches on PyTorch's current stream and counts the launch in LAUNCHES):
   next use).
 - `ring_gather_cuda`: `csrc/ring_gather.cu`, the candidate exchange between
   the lane blocks of a sharded super-step: every block's record to every
-  block.
-- `shard_route_cuda`: columns per shard, one gather, both scatter passes
-  per shard.
+  block, one launch per destination on the destination's card (peer
+  pointers across cards, `enable_peers`).
+- `shard_route_cuda`: columns per shard, one gather per destination, both
+  scatter passes per shard.
 
 `multi_step_cuda` and `sharded_multi_step_cuda` drive a whole super-step:
 stacked outputs allocated once per call, step t's kernels writing slice t,
 two preallocated inbox buffers in turn, parameter structs filled once per
-call, and no host sync.
+call, and no host sync. In the sharded one every shard runs on its own
+device and stream, and `_Exchange`'s events order the exchange.
 """
 from __future__ import annotations
 
@@ -227,7 +229,7 @@ class RingGatherParams(ctypes.Structure):
 
     _fields_ = [
         ("src", ctypes.c_void_p * MAX_SHARDS),
-        ("dst", ctypes.c_void_p * MAX_SHARDS),
+        ("dst", ctypes.c_void_p),
         ("L", ctypes.c_int64),
         ("n", ctypes.c_int32),
     ]
@@ -260,17 +262,29 @@ def _lib(src: str) -> ctypes.CDLL:
 
 
 class _Launcher:
-    """Launch functions of the built libraries, bound to the current stream
-    of one device; each launch is checked and counted."""
+    """Launch functions of the built libraries, bound to one device and one
+    of its streams (its current stream when none is given); each launch is
+    checked and counted. With `switch` every launch first makes the device
+    current (the launchers of shards on distinct cards take turns on one
+    thread)."""
 
-    def __init__(self, device):
-        with torch.cuda.device(device):
-            self.stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    def __init__(self, device, stream: Optional[torch.cuda.Stream] = None,
+                 switch: bool = False):
+        self.device = device
+        if stream is None:
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream()
+        self.stream = ctypes.c_void_p(stream.cuda_stream)
+        self.switch = switch
         self.fns = {fn: getattr(_lib(src), fn)
                     for src, entries in _ENTRIES.items() for fn, _, _ in entries}
 
     def __call__(self, fn: str, params, counter: str) -> None:
-        err = self.fns[fn](ctypes.byref(params), self.stream)
+        if self.switch:
+            with torch.cuda.device(self.device):
+                err = self.fns[fn](ctypes.byref(params), self.stream)
+        else:
+            err = self.fns[fn](ctypes.byref(params), self.stream)
         if err != 0:
             raise RuntimeError(f"{fn} failed: cudaError {err}")
         LAUNCHES[counter] += 1
@@ -560,61 +574,188 @@ def route_step_output_cuda(
 
 # --------------------------------------------------------- candidate gather
 
+#: ordered pairs of cards already mapped for peer access in this process
+_PEERS: set = set()
 
-def _gather_params(records: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+
+def card_index(dev) -> int:
+    """The index of a CUDA device, the current card when it names none."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        raise ValueError(f"not a CUDA device: {dev}")
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def enable_peers(devices) -> None:
+    """Map every ordered pair of the distinct cards among `devices` for
+    peer access, once per pair per process
+    (csrc/ring_gather.cu:ring_gather_enable_peers), so that a gather on one
+    card can pull the records of the others. Raises when a card is not
+    visible or a pair cannot reach each other: the gather never stages
+    through the host. Nothing to map for shards of one card."""
+    idx = sorted({card_index(d) for d in devices})
+    visible = torch.cuda.device_count()
+    if any(i >= visible for i in idx):
+        raise ValueError(f"shards name cards {idx}, but {visible} are visible")
+    if len(idx) < 2 or all((a, b) in _PEERS for a in idx for b in idx if a != b):
+        return
+    lib = _lib("ring_gather.cu")
+    fn = lib.ring_gather_enable_peers
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    rc = fn((ctypes.c_int * len(idx))(*idx), len(idx))
+    if rc < 0:
+        a, b = divmod(-1 - rc, MAX_SHARDS)
+        raise RuntimeError(
+            f"cuda:{idx[a]} cannot reach cuda:{idx[b]} by peer access; the sharded "
+            "candidate gather pulls records between cards and does not stage through "
+            "the host")
+    if rc != 0:
+        raise RuntimeError(f"ring_gather_enable_peers failed: cudaError {rc}")
+    _PEERS.update((a, b) for a in idx for b in idx if a != b)
+
+
+def _gather_params(records: Sequence[torch.Tensor], out: torch.Tensor) -> RingGatherParams:
+    """One destination's gather: the n source records (on any cards, each
+    mapped for the destination's) and the destination's (n, ...) stack."""
     n = len(records)
     if not 1 <= n <= MAX_SHARDS:
         raise ValueError(f"ring_gather takes 1 to {MAX_SHARDS} shards, got {n}")
-    dev = records[0].device
     shape = tuple(records[0].shape)
     p = RingGatherParams()
-    for i, (x, y) in enumerate(zip(records, outs)):
+    for i, x in enumerate(records):
+        dev = _on_cuda(x, "ring_gather")
         p.src[i] = _check("ring_gather", f"record {i}", x, shape, torch.int32, dev)
-        p.dst[i] = _check("ring_gather", f"out {i}", y, (n,) + shape, torch.int32, dev)
+    p.dst = _check("ring_gather", "out", out, (n,) + shape, torch.int32,
+                   _on_cuda(out, "ring_gather"))
     p.L, p.n = records[0].numel(), n
     return p
 
 
 def ring_gather_cuda(records: Sequence[torch.Tensor],
                      outs: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
-    """All-gather of n equal-shape i32 tensors on one card
-    (csrc/ring_gather.cu), the lane blocks' candidate records on the card
-    path: every shard gets the (n, ...) stack, shard-major; `outs` are
-    preallocated stacks or None."""
-    dev = _on_cuda(records[0], "ring_gather")
+    """All-gather of n equal-shape i32 tensors (csrc/ring_gather.cu), the
+    lane blocks' candidate records on the card path: every shard d gets the
+    (n, ...) stack, shard-major, on records[d]'s card, from one launch on
+    that card's current stream. Where a source lies on another card than
+    the destination, the destination's stream first waits on an event
+    recorded on the source card's current stream (the records were written
+    there); `outs` are preallocated stacks or None."""
     n = len(records)
+    devs = [_on_cuda(x, "ring_gather") for x in records]
+    enable_peers(devs)
     if outs is None:
-        outs = [torch.empty((n,) + tuple(records[0].shape), dtype=torch.int32, device=dev)
-                for _ in range(n)]
-    p = _gather_params(records, outs)
-    _Launcher(dev)("ring_gather_launch", p, "ring_gather")
+        outs = [torch.empty((n,) + tuple(records[0].shape), dtype=torch.int32, device=d)
+                for d in devs]
+    streams = [torch.cuda.current_stream(d) for d in devs]
+    written = []
+    for st in streams:
+        ev = torch.cuda.Event()
+        ev.record(st)
+        written.append(ev)
+    for d in range(n):
+        for s in range(n):
+            if streams[s] != streams[d]:
+                streams[d].wait_event(written[s])
+        _Launcher(devs[d], streams[d], switch=True)(
+            "ring_gather_launch", _gather_params(records, outs[d]), "ring_gather")
     return list(outs)
 
 
-def shard_route_cuda(states, outs, routes, rdeltas, cfg: KernelConfig):
-    """The cross-shard router on the card: the columns kernel per shard,
-    one gather launch of the records, the scatter's two passes per shard
+def _shard_streams(states, streams):
+    devs = [_on_cuda(s.term, "sharded router") for s in states]
+    if streams is None:
+        streams = [torch.cuda.current_stream(d) for d in devs]
+    if len(streams) != len(states):
+        raise ValueError("one stream per shard")
+    for d, st in zip(devs, streams):
+        if st.device != d:
+            raise ValueError(f"a shard on {d} has a stream of {st.device}")
+    enable_peers(devs)
+    return devs, list(streams)
+
+
+class _Exchange:
+    """The candidate exchange between n shards, each on its own device and
+    stream, ordered by events only (the streams run concurrently, so stream
+    order orders nothing across shards). Two hazards:
+
+    - read after write: destination d's gather reads every source's record,
+      so d's stream waits on each source's columns-done event first;
+    - write after read: shard s's columns kernel overwrites its record at
+      the next inner step while the destinations may still pull it, so s's
+      stream waits on each destination's gather-done event first.
+
+    A record outlives the call in the allocator's cache, so it is also
+    marked as used by every destination's stream (record_stream): the
+    allocator then hands its bytes out again only after those streams
+    passed the call's last gather."""
+
+    def __init__(self, devs, streams, records, gathered):
+        self.n = len(devs)
+        self.streams = streams
+        self.launch = [_Launcher(d, st, switch=len(set(devs)) > 1)
+                       for d, st in zip(devs, streams)]
+        self.cols_done = [torch.cuda.Event() for _ in devs]
+        self.gather_done = [torch.cuda.Event() for _ in devs]
+        self.params = [_gather_params(records, g) for g in gathered]
+        self.started = False
+        for s, rec in enumerate(records):
+            for d, st in enumerate(streams):
+                if d != s:
+                    rec.record_stream(st)
+
+    def _wait_all(self, i: int, events) -> None:
+        st = self.streams[i]
+        for j, ev in enumerate(events):
+            if j != i:
+                st.wait_event(ev)
+
+    def columns(self, i: int, params) -> None:
+        """Shard i's columns kernel, after every gather that read its last
+        record (write after read), then its columns-done event."""
+        if self.started:
+            self._wait_all(i, self.gather_done)
+        self.launch[i]("route_columns_launch", params, "route_columns")
+        self.cols_done[i].record(self.streams[i])
+
+    def gather(self, d: int) -> None:
+        """Destination d's gather, after every source's columns kernel (read
+        after write), then its gather-done event."""
+        self._wait_all(d, self.cols_done)
+        self.launch[d]("ring_gather_launch", self.params[d], "ring_gather")
+        self.gather_done[d].record(self.streams[d])
+        self.started = True
+
+
+def shard_route_cuda(states, outs, routes, rdeltas, cfg: KernelConfig, streams=None):
+    """The cross-shard router on the card: the columns kernel per shard, one
+    gather launch per destination shard, the scatter's two passes per shard
     (each replaying the insert over every shard's candidates, and writing
-    its own inbox rows and its own candidates' plan bits)."""
+    its own inbox rows and its own candidates' plan bits). Shard i's
+    kernels run on streams[i] (default: its device's current stream),
+    ordered across shards by _Exchange's events."""
     n = len(states)
-    dev = _on_cuda(states[0].term, "shard_route")
+    devs, streams = _shard_streams(states, streams)
     Gl, P = states[0].member.shape
     K, R, E = cfg.inbox_depth, cfg.readindex_depth, cfg.max_entries_per_msg
-    records = [_alloc_record(Gl, cfg, dev) for _ in range(n)]
-    gathered = [torch.empty((n, record_words(Gl, cfg)), dtype=torch.int32, device=dev)
-                for _ in range(n)]
-    nxts = [_alloc_inbox(Gl, K, E, dev) for _ in range(n)]
-    plans = [_alloc_plan(Gl, P, K, R, dev) for _ in range(n)]
+    records, gathered, nxts, plans, scat = [], [], [], [], []
+    for i in range(n):
+        with torch.cuda.stream(streams[i]):
+            records.append(_alloc_record(Gl, cfg, devs[i]))
+            gathered.append(torch.empty((n, record_words(Gl, cfg)), dtype=torch.int32,
+                                        device=devs[i]))
+            nxts.append(_alloc_inbox(Gl, K, E, devs[i]))
+            plans.append(_alloc_plan(Gl, P, K, R, devs[i]))
+            scat.append(_scatter_params(gathered[i], alloc_slots(n * Gl, K, devs[i]), n, i,
+                                        Gl, P, nxts[i], plans[i], cfg))
     cols = [_columns_params(*a, cfg) for a in zip(states, outs, routes, rdeltas, records, plans)]
-    gp = _gather_params(records, gathered)
-    scat = [_scatter_params(gathered[i], alloc_slots(n * Gl, K, dev), n, i, Gl, P, nxts[i],
-                            plans[i], cfg) for i in range(n)]
-    launch = _Launcher(dev)
-    for p in cols:
-        launch("route_columns_launch", p, "route_columns")
-    launch("ring_gather_launch", gp, "ring_gather")
-    for p in scat:
-        launch.scatter(p)
+    ex = _Exchange(devs, streams, records, gathered)
+    for i in range(n):
+        ex.columns(i, cols[i])
+    for d in range(n):
+        ex.gather(d)
+        ex.launch[d].scatter(scat[d])
     return nxts, plans
 
 
@@ -626,9 +767,11 @@ class _Block:
     super-step call. Step t's kernel reads inbox buffer `cur(t)` and writes
     slice t of the stacked outputs; the router writes the next inbox into
     the other buffer, and the last inner step's router writes into the
-    caller's residual, which is how the residual is updated in place."""
+    caller's residual, which is how the residual is updated in place. The
+    stacked outputs and plans are the caller's when given (`into`)."""
 
-    def __init__(self, s, inbox, ticks, resid, route, rdelta, cfg, steps, n, my, gathered):
+    def __init__(self, s, inbox, ticks, resid, route, rdelta, cfg, steps, n, my, gathered,
+                 into=None):
         from .kernel import merge_residual
 
         dev = s.term.device
@@ -639,8 +782,11 @@ class _Block:
                 raise ValueError(f"multi_step: {what} must be [{G}, {K}] x E={E}")
         self.s, self.resid = s, resid
         self.bufs = (merge_residual(resid, inbox), _alloc_inbox(G, K, E, dev))
-        self.outs = _alloc_output(G, P, K, R, dev, steps)
-        self.plans = _alloc_plan(G, P, K, R, dev, steps)
+        if into is None:
+            self.outs = _alloc_output(G, P, K, R, dev, steps)
+            self.plans = _alloc_plan(G, P, K, R, dev, steps)
+        else:
+            self.outs, self.plans = into
         self.record = _alloc_record(G, cfg, dev)
         self.slots = alloc_slots(n * G, K, dev)
         zeros = torch.zeros_like(ticks)
@@ -650,6 +796,11 @@ class _Block:
         step0 = make_params(s, self.bufs[0], ticks, at(self.outs, 0), cfg)
         cols0 = _columns_params(s, at(self.outs, 0), route, rdelta, self.record,
                                 at(self.plans, 0), cfg)
+        if into is not None:
+            exp = [((steps,) + shape, dt) for _, shape, dt in _output_layout(G, P, K, R)]
+            exp += [((steps,) + shape, torch.bool) for shape in [(G, P)] * 4 + [(G, K), (G, R)]]
+            for (shape, dt), x in zip(exp, (*self.outs, *self.plans)):
+                _check("multi_step", "into", x, shape, dt, dev)
         g = self.record if gathered is None else gathered
         # the caller's residual is written in place by the last inner step
         scat0 = _scatter_params(g, self.slots, n, my, G, P, resid, at(self.plans, 0), cfg)
@@ -706,26 +857,35 @@ def multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg: KernelConfig, st
 
 
 def sharded_multi_step_cuda(states, inboxes, ticks, resids, routes, rdeltas,
-                            cfg: KernelConfig, steps: int):
-    """The sharded super-step on one card: per inner step n step_batch
-    launches, n route_columns launches, one ring_gather launch covering all
-    n destinations, and the scatter's two launches per shard."""
+                            cfg: KernelConfig, steps: int, streams=None, into=None):
+    """The sharded super-step: shard i's kernels run on its own device and
+    on streams[i] (default: its device's current stream). Per inner step n
+    step_batch launches, n route_columns launches, n ring_gather launches
+    (one per destination, on the destination's stream) and the scatter's two
+    launches per shard, ordered across shards by _Exchange's events. `into`
+    holds per shard the (outs, plans) stacks to write, or None."""
     n = len(states)
-    dev = _on_cuda(states[0].term, "sharded_multi_step")
+    devs, streams = _shard_streams(states, streams)
     Gl = states[0].member.shape[0]
-    gathered = [torch.empty((n, record_words(Gl, cfg)), dtype=torch.int32, device=dev)
-                for _ in range(n)]
-    blks = [_Block(states[i], inboxes[i], ticks[i], resids[i], routes[i], rdeltas[i], cfg,
-                   steps, n, i, gathered[i]) for i in range(n)]
-    gp = _gather_params([b.record for b in blks], gathered)
-    launch = _Launcher(dev)
+    blks, gathered = [], []
+    for i in range(n):
+        with torch.cuda.stream(streams[i]):
+            gathered.append(torch.empty((n, record_words(Gl, cfg)), dtype=torch.int32,
+                                        device=devs[i]))
+            blks.append(_Block(states[i], inboxes[i], ticks[i], resids[i], routes[i],
+                               rdeltas[i], cfg, steps, n, i, gathered[i],
+                               None if into is None else into[i]))
+    ex = _Exchange(devs, streams, [b.record for b in blks], gathered)
     for t in range(steps):
-        for b in blks:
-            launch("step_batch_launch", b.step_p[t], "step_batch")
-        for b in blks:
-            launch("route_columns_launch", b.cols_p[t], "route_columns")
-        launch("ring_gather_launch", gp, "ring_gather")
-        for b in blks:
-            launch.scatter(b.scat_p[t])
-    res = [b.result() for b in blks]
+        for i, b in enumerate(blks):
+            ex.launch[i]("step_batch_launch", b.step_p[t], "step_batch")
+        for i, b in enumerate(blks):
+            ex.columns(i, b.cols_p[t])
+        for d, b in enumerate(blks):
+            ex.gather(d)
+            ex.launch[d].scatter(b.scat_p[t])
+    res = []
+    for i, b in enumerate(blks):
+        with torch.cuda.stream(streams[i]):
+            res.append(b.result())
     return tuple(tuple(r[k] for r in res) for k in range(5))

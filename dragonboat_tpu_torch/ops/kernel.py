@@ -1413,33 +1413,49 @@ def make_multi_step_fn(cfg: KernelConfig, steps: int, donate: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def shard_tree(tree, n: int, axis: int = 0):
+def shard_tree(tree, n: int, axis: int = 0, devices=None):
     """Split a tensor or a NamedTuple of tensors into n contiguous lane
     blocks along ``axis`` (0 for state-like trees, 1 for trees stacked over
-    inner steps), each block a tensor of its own."""
+    inner steps), each block a tensor of its own; block i on devices[i]
+    when ``devices`` (n of them) is given, else on the tree's device."""
+    if devices is not None and len(devices) != n:
+        raise ValueError(f"{len(devices)} devices for {n} shards")
     if isinstance(tree, torch.Tensor):
         G = tree.shape[axis]
         if G % n:
             raise ValueError(f"{G} lanes do not split into {n} equal shards")
         Gl = G // n
-        return tuple(tree.narrow(axis, i * Gl, Gl).clone(memory_format=torch.contiguous_format)
-                     for i in range(n))
-    parts = [shard_tree(t, n, axis) for t in tree]
+        return tuple(
+            tree.narrow(axis, i * Gl, Gl).to(
+                device=tree.device if devices is None else devices[i],
+                memory_format=torch.contiguous_format, copy=True)
+            for i in range(n))
+    parts = [shard_tree(t, n, axis, devices) for t in tree]
     return tuple(type(tree)(*(p[i] for p in parts)) for i in range(n))
 
 
 def unshard_tree(trees, axis: int = 0):
-    """Join lane blocks back into one tensor or tree along ``axis``."""
+    """Join lane blocks back into one tensor or tree along ``axis``, on the
+    first block's device."""
     if isinstance(trees[0], torch.Tensor):
-        return torch.cat(list(trees), dim=axis)
-    return type(trees[0])(*(torch.cat(list(p), dim=axis) for p in zip(*trees)))
+        dev = trees[0].device
+        return torch.cat([t.to(dev) for t in trees], dim=axis)
+    return type(trees[0])(*(unshard_tree(list(p), axis) for p in zip(*trees)))
+
+
+def gather_for(slabs, d: int):
+    """The plain candidate exchange for ONE destination shard d: the (n,
+    ...) stack of all n shards' slabs, shard-major, on slabs[d]'s device
+    (what csrc/ring_gather.cu's launch for destination d writes)."""
+    dev = slabs[d].device
+    return torch.stack([x.to(dev) for x in slabs])
 
 
 def ring_gather_reference(slabs):
     """The plain candidate exchange: every shard gets the (n, C, Ml) stack
     of all n shards' (C, Ml) slabs, shard-major (lax.all_gather with
     tiled=False)."""
-    return [torch.stack(list(slabs)) for _ in slabs]
+    return [gather_for(slabs, d) for d in range(len(slabs))]
 
 
 def _gather_candidates(slabs, outs=None):
@@ -1601,31 +1617,62 @@ def sharded_multi_step_batch(states, inboxes, ticks, resids, routes, rdeltas,
 
 @functools.lru_cache(maxsize=None)
 def make_sharded_multi_step_fn(cfg: KernelConfig, steps: int, devices, donate: bool = True):
-    """The sharded super-step over ``devices``, a tuple of one
-    torch.device per shard: fn(states, inboxes, ticks, resids, routes,
-    rdeltas), each a sequence of n per-shard trees (see shard_tree), ->
-    (states, outs, plans, resids, resid_counts), each a tuple of n. The
-    shards are logical: all of them live on one device (several lane blocks
-    of one card, or of the CPU). Shards on distinct cards are not supported
-    yet (ROADMAP queue 2, item G). With donate=True the kernel path updates
+    """The sharded super-step over ``devices``, a tuple of one torch.device
+    per shard (several shards may name one device: logical shards, lane
+    blocks of one card or of the CPU): fn(states, inboxes, ticks, resids,
+    routes, rdeltas, streams=None, into=None), each a sequence of n
+    per-shard trees (see shard_tree) with shard i's on devices[i], ->
+    (states, outs, plans, resids, resid_counts), each a tuple of n.
+
+    On cards, shard i's kernels run on streams[i], one stream per shard
+    (default: streams made here, one per shard, also where shards share a
+    card), ordered across shards by events (cuda._Exchange); the cards of
+    distinct shards are mapped for peer access here, once per pair, and a
+    pair that cannot reach each other raises. ``into`` gives per shard the
+    (outs, plans) stacks to write. With donate=True the kernel path updates
     each shard's state and residual in place; donate=False clones them."""
     devs = tuple(torch.device(d) for d in devices)
-    if len(set(devs)) != 1:
-        raise NotImplementedError(
-            "shards on distinct devices need the multi-card gather "
-            "(ROADMAP queue 2, item G); give every shard the same device")
-    n, dev = len(devs), devs[0]
+    if len({d.type for d in devs}) != 1:
+        raise ValueError(f"shards on one device type only, got {devs}")
+    n = len(devs)
+    own = None
+    if devs[0].type == "cuda":
+        from .cuda import card_index, enable_peers
 
-    def sharded_multi_step(states, inboxes, ticks, resids, routes, rdeltas):
+        devs = tuple(torch.device("cuda", card_index(d)) for d in devs)
+        enable_peers(devs)
+        own = tuple(torch.cuda.Stream(d) for d in devs)
+
+    def sharded_multi_step(states, inboxes, ticks, resids, routes, rdeltas,
+                           streams=None, into=None):
         args = (states, inboxes, ticks, resids, routes, rdeltas)
         if any(len(a) != n for a in args):
             raise ValueError(f"every argument must hold {n} shards")
-        if any(s.term.device != dev for s in states):
-            raise ValueError(f"the shards' state must live on {dev}")
-        if not donate and dev.type == "cuda":
+        for i, s in enumerate(states):
+            if s.term.device != devs[i]:
+                raise ValueError(f"shard {i}'s state must live on {devs[i]}, "
+                                 f"not {s.term.device}")
+        if own is None:
+            return sharded_multi_step_batch(states, inboxes, ticks, resids, routes,
+                                            rdeltas, cfg, steps)
+        if not donate:
             states = [clone_state(s) for s in states]
             resids = [clone_state(r) for r in resids]
-        return sharded_multi_step_batch(states, inboxes, ticks, resids, routes,
-                                        rdeltas, cfg, steps)
+        from .cuda import sharded_multi_step_cuda
+
+        if streams is not None:
+            return sharded_multi_step_cuda(states, inboxes, ticks, resids, routes, rdeltas,
+                                           cfg, steps, streams, into)
+        # the fn's own streams: ordered after the caller's current streams
+        # (which wrote the inputs) and before them again (which read the
+        # results)
+        callers = [torch.cuda.current_stream(d) for d in devs]
+        for st, caller in zip(own, callers):
+            st.wait_stream(caller)
+        res = sharded_multi_step_cuda(states, inboxes, ticks, resids, routes, rdeltas, cfg,
+                                      steps, own, into)
+        for st, caller in zip(own, callers):
+            caller.wait_stream(st)
+        return res
 
     return sharded_multi_step

@@ -5,7 +5,6 @@ cluster tests on the port's vector engine on the CPU, marked slow as
 there), and the same plugin through both packages' loaders."""
 import io
 import os
-import subprocess
 import threading
 import time
 
@@ -17,23 +16,19 @@ _SO_CONCURRENT = os.path.join(_BUILD, "libconcurrent_sm.so")
 _SO_ONDISK = os.path.join(_BUILD, "libdiskkv_sm.so")
 
 
-def _built() -> bool:
+@pytest.fixture(scope="module", autouse=True)
+def _plugins():
+    """The plugins of `make -C native all`, built before the module's first
+    test under the port's build lock (dragonboat_tpu_torch.native), never
+    while the module is collected; skips where there is no toolchain, and
+    a failed build fails loudly."""
     import shutil
 
-    if all(os.path.exists(p) for p in (_SO, _SO_CONCURRENT, _SO_ONDISK)):
-        return True
-    if shutil.which("g++") is None:
-        return False  # genuinely no toolchain: skip
-    proc = subprocess.run(
-        ["make", "-C", os.path.join(os.path.dirname(__file__), "..", "native")],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"native build failed:\n{proc.stderr}")
-    return os.path.exists(_SO)
+    if shutil.which("g++") is None or shutil.which("make") is None:
+        pytest.skip("native toolchain unavailable")
+    from dragonboat_tpu_torch import native
 
-
-pytestmark = pytest.mark.skipif(not _built(), reason="native toolchain unavailable")
+    native.build_plugins()
 
 # the cluster tests run the vector engine the reference's NodeHost
 # defaults to, on the CPU (the port's default device is the card), at the

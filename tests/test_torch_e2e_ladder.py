@@ -26,7 +26,7 @@ PORT_EXTRAS = {
     "out_of_seam_syncs", "out_of_seam_sites", "in_seam_syncs", "kernel_builds",
     "host_stage_window_s", "busy", "groups_applied", "groups_diverged",
     "converged", "lincheck_ops", "lincheck_errors", "lincheck_ok",
-    "engine_steps_total", "config", "drops_applied", "readindex_run",
+    "engine_steps_total", "config", "drops_applied", "readindex_run", "msgs_in_window",
 }
 # the keys bench.py's ladder runner stamps on every config's record
 LADDER_KEYS = {"label", "nominal_groups", "actual_groups", "scaled_down", "entries_per_msg"}
@@ -249,8 +249,8 @@ def test_gates_catch_a_failed_run():
 def test_main_defaults_to_the_nominal_width(monkeypatch, capsys):
     seen = []
 
-    def fake(n, groups=None, duration=None, device="cuda"):
-        seen.append((n, groups, duration, device))
+    def fake(n, groups=None, duration=None, device="cuda", shard_over_mesh=False):
+        seen.append((n, groups, duration, device, shard_over_mesh))
         return dict(config=n, actual_groups=groups, error="not run")
 
     monkeypatch.setattr(e2e, "run_ladder_config", fake)
@@ -259,7 +259,9 @@ def test_main_defaults_to_the_nominal_width(monkeypatch, capsys):
                      "--duration", "3"]) == 1
     assert e2e.main(["--config", "7", "--device", "cpu", "--groups", "4",
                      "--duration", "3"]) == 1
-    assert seen == [(3, 10_000, None, "cuda"), (5, 4, 3.0, "cpu"), (7, 4, 3.0, "cpu")]
+    assert e2e.main(["--config", "6", "--shard-over-mesh"]) == 1
+    assert seen == [(3, 10_000, None, "cuda", False), (5, 4, 3.0, "cpu", False),
+                    (7, 4, 3.0, "cpu", False), (6, 1024, None, "cuda", True)]
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["gate_failures"]
     with pytest.raises(SystemExit):
         e2e.main(["--config", "9"])

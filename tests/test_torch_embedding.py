@@ -22,26 +22,24 @@ _GLUE = os.path.join(_REPO, "dragonboat_tpu_torch", "native", "binding.cc")
 _REF = os.path.join(_REPO, "native", "binding", "binding.cc")
 
 
-def _built():
-    """The port's library and demos, or None where there is no toolchain
-    (no g++, or no Python development headers: a missing optional
-    dependency, as in the reference's test). Any other build failure
-    fails loudly."""
+@pytest.fixture(scope="module")
+def paths():
+    """The port's library and demos, built when a test first needs them,
+    under the port's build lock (dragonboat_tpu_torch.native), never while
+    the module is collected; skips where there is no toolchain (no g++, or
+    no Python development headers: a missing optional dependency, as in
+    the reference's test). Any other build failure fails loudly."""
     from dragonboat_tpu_torch import native
 
     if shutil.which("g++") is None or shutil.which("make") is None:
-        return None
+        pytest.skip("native toolchain unavailable")
     try:
         native.build_plugins()
         return native.build_embedding()
     except native.EmbedBuildError as e:
         if "Python.h" in str(e):
-            return None
+            pytest.skip("native toolchain unavailable")
         raise
-
-
-_PATHS = _built()
-needs_toolchain = pytest.mark.skipif(_PATHS is None, reason="native toolchain unavailable")
 
 
 def _run_demo(args, env, timeout):
@@ -81,23 +79,21 @@ def test_glue_imports_the_port_and_never_the_jax_package():
     assert "jax" not in glue.lower()
 
 
-@needs_toolchain
-def test_build_writes_the_port_library_and_demos():
+def test_build_writes_the_port_library_and_demos(paths):
     from dragonboat_tpu_torch import native
 
-    assert _PATHS == native.build_embedding()
-    for p in _PATHS.values():
+    assert paths == native.build_embedding()
+    for p in paths.values():
         assert os.path.dirname(p) == native.BUILD_DIR and os.path.exists(p)
     assert native.BUILD_DIR != os.path.join(_REPO, "native", "build")
     # the demos resolve the port's library, not the reference's
-    ldd = subprocess.run(["ldd", _PATHS["embed_demo"]], capture_output=True, text=True)
+    ldd = subprocess.run(["ldd", paths["embed_demo"]], capture_output=True, text=True)
     if ldd.returncode == 0:
         line = next(ln for ln in ldd.stdout.splitlines() if "libdbtpu.so" in ln)
         assert native.BUILD_DIR in line
 
 
-@needs_toolchain
-def test_default_device_is_the_card(tmp_path):
+def test_default_device_is_the_card(tmp_path, paths):
     """Without DBTPU_DEVICE the glue asks for the card; on a machine with
     none the NodeHost start fails through the ABI, and no CPU engine runs."""
     import torch
@@ -108,26 +104,24 @@ def test_default_device_is_the_card(tmp_path):
         pytest.skip("a CUDA card is present: the default run would use it")
     env = native.demo_env()
     env.pop("DBTPU_DEVICE")
-    proc = _run_demo([_PATHS["embed_demo"], str(tmp_path), _PLUGIN], env, 120)
+    proc = _run_demo([paths["embed_demo"], str(tmp_path), _PLUGIN], env, 120)
     out = proc.stdout + proc.stderr
     assert "EMBED DEMO PASS" not in out
     assert "no CUDA device is available" in out
 
 
 @pytest.mark.slow
-@needs_toolchain
-def test_embed_demo_runs(tmp_path):
+def test_embed_demo_runs(tmp_path, paths):
     from dragonboat_tpu_torch import native
 
-    proc = _run_demo([_PATHS["embed_demo"], str(tmp_path), _PLUGIN],
+    proc = _run_demo([paths["embed_demo"], str(tmp_path), _PLUGIN],
                      native.demo_env("cpu"), 180)
     assert proc.returncode == 0, (proc.stdout, proc.stderr)
     assert "EMBED DEMO PASS" in proc.stdout
 
 
 @pytest.mark.slow
-@needs_toolchain
-def test_oo_demo_runs(tmp_path):
+def test_oo_demo_runs(tmp_path, paths):
     """The OO wrapper's demo (sessions, sync/async proposals, ReadIndex and
     local reads, membership and observer add, a snapshot request, restart
     with the on-disk plugin recovering its applied index) over the port's
@@ -136,6 +130,6 @@ def test_oo_demo_runs(tmp_path):
 
     env = native.demo_env("cpu")
     env["DBTPU_DISKKV_DIR"] = str(tmp_path / "diskkv")
-    proc = _run_demo([_PATHS["oo_demo"], str(tmp_path), _ONDISK_PLUGIN], env, 600)
+    proc = _run_demo([paths["oo_demo"], str(tmp_path), _ONDISK_PLUGIN], env, 600)
     assert proc.returncode == 0, (proc.stdout, proc.stderr)
     assert "OO DEMO PASS" in proc.stdout

@@ -247,11 +247,27 @@ def test_timeline_sweep_flag_merges_run_dir(tmp_path):
     events = [json.loads(ln) for ln in p.stdout.splitlines()]
     assert [e["event"] for e in events] == ["x", "y"]
 
-def test_longhaul_sharded_multistep_smoke(tmp_path, capsys):
+def test_longhaul_sharded_multistep_smoke(tmp_path, capsys, monkeypatch):
     """The smoke rotation covers the sharded K-step engine: one round on
     shard_over_mesh + steps_per_sync=4 runs the usual chaos schedule to green verdicts —
     partition/drop force lanes onto the host-fallback path while the
-    healthy co-hosted lanes keep riding the on-device router."""
+    healthy co-hosted lanes keep riding the on-device router. The engines
+    shard over 8 logical CPU shards (engine.vector.mesh_devices), as the
+    reference's run shards over the conftest's 8 virtual devices."""
+    import torch
+
+    import dragonboat_tpu_torch.engine.vector as V
+
+    meshes = []
+    monkeypatch.setattr(V, "mesh_devices",
+                        lambda device: meshes.append(device) or (torch.device("cpu"),) * 8)
+    orig_init = V.VectorEngine.__init__
+
+    def init(self, *a, **k):
+        orig_init(self, *a, **k)
+        meshes.append(self._mesh_devices)
+
+    monkeypatch.setattr(V.VectorEngine, "__init__", init)
     report = run_longhaul(
         Options(
             budget_s=90.0,
@@ -272,6 +288,9 @@ def test_longhaul_sharded_multistep_smoke(tmp_path, capsys):
     assert r.ok and r.verdicts["lincheck"]
     out = capsys.readouterr().out
     assert "verdict=OK" in out
+    # every vector engine of the round sharded over the 8 logical shards
+    widths = [m for m in meshes if isinstance(m, int)]
+    assert widths and set(widths) == {8}, meshes
 
 
 def test_longhaul_replay_cmd_reproduces_engine_composition(tmp_path):

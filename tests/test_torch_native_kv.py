@@ -12,9 +12,17 @@ from dragonboat_tpu_torch.storage.kv import WalKV, WriteBatch
 from dragonboat_tpu_torch.storage import native_kv
 from dragonboat_tpu_torch.storage.native_kv import NativeWalKV, native_available
 
-pytestmark = pytest.mark.skipif(
-    not native_available(), reason="native toolchain unavailable"
-)
+@pytest.fixture(scope="module", autouse=True)
+def _native_lib():
+    """libwalkv.so, built before the module's first test under the port's
+    build lock (dragonboat_tpu_torch.native), never while the module is
+    collected; skips where it cannot be built or loaded."""
+    from dragonboat_tpu_torch import native
+
+    with native._locked():
+        ok = native_available()
+    if not ok:
+        pytest.skip("native toolchain unavailable")
 
 
 def test_put_get_delete(tmp_path):

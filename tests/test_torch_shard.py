@@ -10,8 +10,9 @@ versions on the CPU) against the JAX package's shard_map path on the
   draws whose destinations cross shards;
 - ring_gather_reference against lax.all_gather under shard_map, byte for
   byte;
-- shard_tree / unshard_tree round trips, and the refusal of distinct
-  devices.
+- shard_tree / unshard_tree round trips with per-shard devices, and the
+  device rule of make_sharded_multi_step_fn (one device type; distinct
+  cards only where visible and mapped for each other).
 """
 import functools
 import random
@@ -154,6 +155,22 @@ def test_shard_tree_round_trip_and_device_rule():
     _assert_tree_equal(tree, st, "source untouched")
     with pytest.raises(ValueError, match="equal shards"):
         K.shard_tree(tree, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # per-shard devices: block i on devices[i], one device per shard
+    placed = K.shard_tree(tree, 2, devices=(CPU, CPU))
+    assert all(t.device == CPU for p in placed for t in p)
+    _assert_tree_equal(K.unshard_tree(placed), tree, "placed")
+    with pytest.raises(ValueError, match="devices for"):
+        K.shard_tree(tree, 4, devices=(CPU,))
+    # shards of one device type; distinct cards are accepted, and built
+    # only where each is visible and every pair reaches the other (no
+    # card here: refused before any kernel is built)
+    with pytest.raises(ValueError, match="one device type"):
+        K.make_sharded_multi_step_fn(SKCFG, 4, (CPU, torch.device("cuda", 0)))
+    with pytest.raises(ValueError, match="visible"):
         K.make_sharded_multi_step_fn(SKCFG, 4, (torch.device("cuda", 0),
                                                  torch.device("cuda", 1)))
+    # a shard whose state lies elsewhere than its device is refused
+    fn = K.make_sharded_multi_step_fn(SKCFG, 4, (CPU, CPU))
+    s2 = K.shard_tree(T.init_state(SKCFG, device="cpu"), 2)
+    with pytest.raises(ValueError, match="every argument must hold 2"):
+        fn(s2[:1], (), (), (), (), ())
