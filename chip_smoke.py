@@ -669,6 +669,7 @@ def profile_superstep(K, kb, cfg, s0, route, rdelta, hosts, sharded):
                                  getattr(e, "self_cuda_time_total", 0)) or 0
     per = {e.key: dev_time(e) / 1e3 / 3 for e in prof.key_averages()
            if dev_time(e) > 0 and getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CPU}
+    launches = {e.key: e.count / 3 for e in prof.key_averages() if e.key in per}
     busy = sum(per.values())
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:6])
     return {
@@ -676,6 +677,7 @@ def profile_superstep(K, kb, cfg, s0, route, rdelta, hosts, sharded):
         "device_busy_ms_per_superstep": busy if busy else None,
         "device_idle_share": 1 - busy / (wall / 3) if busy else None,
         "device_ms_by_kernel": {k[:60]: v for k, v in top.items()},
+        "device_launches_by_kernel": {k[:60]: launches[k] for k in top},
     }
 
 
@@ -831,18 +833,27 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
     # one launch's device duration (the mean over the n destinations'
     # launches), the plain version for one destination (gather_for) and the
     # library call that computes the same stack (torch.stack); all n
-    # destinations: the n launches' device time and the plain version's
+    # destinations: the device time of the n launches of one call (their
+    # durations summed: one stream runs them one after another) and the
+    # plain version's. The loop rereads the same records into the same
+    # stacks, so where both fit the card's L2 (`l2_resident`) the kernel
+    # reads them from there and can beat its HBM bound; phase 10 times the
+    # gather at 50,000 lanes, where they do not fit
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
+
     def time_gather(shape):
         xs = [torch.randint(-9, 9, shape, dtype=torch.int32, device=dev) for _ in range(n)]
         outs = [torch.empty((n,) + shape, dtype=torch.int32, device=dev) for _ in range(n)]
         gps = [cuda._gather_params(xs, o) for o in outs]
-        ms = kb.device_ms(lambda: [launcher("ring_gather_launch", gp, "ring_gather")
-                                   for gp in gps],
-                          lambda: None, 50, ["ring_gather_kernel"])["ring_gather_kernel"]
+        call = lambda: [launcher("ring_gather_launch", gp, "ring_gather") for gp in gps]
+        ms = kb.device_ms(call, lambda: None, 50, ["ring_gather_kernel"])["ring_gather_kernel"]
+        touched = 4 * (n + n * n) * xs[0].numel()
         return dict(ms=ms, plain_ms=time_ms(lambda: K.gather_for(xs, 0), 20),
                     library_ms=time_ms(lambda: torch.stack(xs), 20),
                     bound_ms=hbm(kb.ring_gather_dest_bytes(n, xs[0].numel())),
-                    all_destinations_ms=n * ms,
+                    l2_resident=bool(l2) and touched <= l2, bytes_touched=touched,
+                    l2_bytes=l2,
+                    all_destinations_ms=kb.device_ms(call, lambda: None, 50)["total"],
                     all_destinations_plain_ms=time_ms(lambda: K.ring_gather_reference(xs), 20),
                     all_destinations_bound_ms=hbm(kb.ring_gather_bytes(n, xs[0].numel())))
 
@@ -866,7 +877,8 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
             f"(gather_for) {g['plain_ms']:.4f} ms, library torch.stack {g['library_ms']:.4f} ms, "
             f"bound {g['bound_ms']:.5f} ms; all {n} destinations: kernel "
             f"{g['all_destinations_ms']:.4f} ms, plain {g['all_destinations_plain_ms']:.4f} ms, "
-            f"bound {g['all_destinations_bound_ms']:.5f} ms")
+            f"bound {g['all_destinations_bound_ms']:.5f} ms; records and stacks "
+            f"{g['bytes_touched']} B, L2 {g['l2_bytes']} B, L2-resident {g['l2_resident']}")
     if route_bad or record_bad or gather_bad:
         raise AssertionError(f"router {sorted(route_bad)}, records {sorted(record_bad)}, "
                              f"gather {sorted(gather_bad)}")
@@ -1676,11 +1688,11 @@ class SuperstepRecorder:
         def make(cfg, steps, *args, **kwargs):
             fn = self._inner[0](cfg, steps, *args, **kwargs)
 
-            def multi_step(s, inbox, ticks, resid, route, rdelta):
+            def multi_step(s, inbox, ticks, resid, route, rdelta, into=None):
                 self._record(self.kept, lambda: (
                     clone(s), clone(inbox), ticks.clone(), clone(resid), route.clone(),
                     rdelta.clone(), cfg, steps))
-                return fn(s, inbox, ticks, resid, route, rdelta)
+                return fn(s, inbox, ticks, resid, route, rdelta, into=into)
 
             return multi_step
 
@@ -2368,6 +2380,25 @@ def phase_mesh_engine(cuda, K, config, devices, groups=None, duration=None):
     return r, launches
 
 
+def gather_at_scale(K, kb, cfg, devices, timed):
+    """The gather's launches in the profiled sharded super-steps of
+    time_superstep (`timed`): device time per launch (the kernel's time
+    over its launch count) beside one destination's byte bound at this
+    record size."""
+    n = len(devices)
+    words = K.record_words(cfg.groups // n, cfg)
+    key = next(k for k in timed["device_ms_by_kernel"] if k.startswith("ring_gather_kernel"))
+    per_step = timed["device_launches_by_kernel"][key]
+    out = {"lanes": cfg.groups, "shards": n, "record_words": words,
+           "ms": timed["device_ms_by_kernel"][key] / per_step,
+           "launches_per_superstep": per_step,
+           "bound_ms": kb.ring_gather_dest_bytes(n, words) / kb.HBM_BYTES_PER_S * 1e3}
+    log(f"ring_gather in the sharded super-step @ {cfg.groups} lanes ({n} x {words}-word "
+        f"records): {out['ms']:.4f} ms per launch ({per_step:.0f} launches a super-step), "
+        f"bound {out['bound_ms']:.5f} ms")
+    return out
+
+
 def phase_mesh(cuda, K, kb, card):
     """Phase 10: the sharded path over MESH_SHARDS logical shards of one
     card (each its own stream), then, where more cards are visible, over
@@ -2408,6 +2439,8 @@ def phase_mesh(cuda, K, kb, card):
                     f"{t['profiled_wall_ms_per_superstep']:.3f} ms profiled wall, idle share "
                     f"{t['device_idle_share']}, launches per super-step "
                     f"{t['launches_per_superstep']} [{card}]")
+            run["lockstep_50k"]["gather"] = gather_at_scale(K, kb, bcfg, devices,
+                                                            run["lockstep_50k"]["sharded"])
         for config in MESH_CONFIGS if name == "logical" else MESH_CONFIGS[:1]:
             r, launches = phase_mesh_engine(cuda, K, config, devices)
             run[f"config{config}"] = r
@@ -2698,6 +2731,7 @@ def main() -> int:
     gather_row = next(k for k in kernels["kernels"] if k["name"] == "ring_gather")
     gather_row["launches_phase4"] = gather_row["launches"]
     gather_row["launches"] = mesh_runs["config6"]["launches"]["ring_gather"]
+    gather_row["superstep_50k"] = mesh_runs["lockstep_50k"]["gather"]
     kernels["superstep"] = {"unsharded": unsharded, "sharded": sharded,
                             "shards": SS_SHARDS, "card": card}
     kernels["mesh"] = {

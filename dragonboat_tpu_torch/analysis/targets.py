@@ -12,12 +12,12 @@ own code (`dragonboat_tpu_torch/`), not from the JAX package's names:
   * the two blessed sync seams, `VectorEngine._fetch_output` and
     `VectorEngine._fetch_super` — the same pair as the runtime
     `profile.SyncAudit.BLESSED` — and the device roots: the engine's
-    tensors on the card (`self._state`, the residual inbox `self._resid`,
-    the device staging planes `self._dev_in`/`self._dev_inbox`, the
-    device output planes `self._dev_out`, and the sharded engine's
-    per-shard trees and planes under `self._shards`) and the pinned host
-    slots the fetch reads (`self._out_slots`), which are not safe to read
-    before the seam's event waits (one per shard when sharded);
+    tensors on the card (every lane block's state tree, residual inbox
+    and device planes under `self._shards`, one block when unsharded;
+    and the single-tree names of the JAX package's engine, `self._state`,
+    `self._resid`, `self._dev_in`/`self._dev_inbox`, `self._dev_out`) and
+    the pinned host slots the fetch reads (`self._out_slots`), which are
+    not safe to read before the seam's event waits (one per shard);
   * the kernel-build family: the one blessed loader `ops/cuda.py:_lib`
     (it builds on first use, under a lock, and caches the library), the
     calls that build or load kernels (`build_kernels`, `ctypes.CDLL`,
@@ -195,10 +195,7 @@ def _default_targets() -> Targets:
         # and the event record (K=1 and K>1)
         (VECTOR, "VectorEngine._ship_output"),
         (VECTOR, "VectorEngine._ship_super"),
-        # the sharded engine's dispatch (one copy and one step or the
-        # sharded super-step per shard), its per-shard ship and the join
-        # of the fetched shard parts
-        (VECTOR, "VectorEngine._run_sharded"),
+        # the per-shard ship and the join of the fetched shard parts
         (VECTOR, "VectorEngine._ship_shards"),
         (VECTOR, "VectorEngine._join_slot"),
         (VECTOR, "VectorEngine._fetch_output"),
@@ -512,7 +509,7 @@ def _default_targets() -> Targets:
             "self._dev_inbox",
             "self._dev_out",
             "self._out_slots",
-            # the sharded engine's per-shard trees and planes
+            # the lane blocks' trees and planes
             "self._shards",
         },
         blessed_build={(CUDA, "_lib")},

@@ -281,19 +281,53 @@ def mesh_devices(device: torch.device) -> Tuple[torch.device, ...]:
 
 
 class _Shard:
-    """One lane block of a sharded engine: global lanes [lo, hi) as rows
+    """One lane block of the engine: global lanes [lo, hi) as rows
     0..hi-lo of its own state tree, residual inbox and device planes, on
-    its own device and (on a card) its own stream."""
+    its own device and (on a card) its own stream. An unsharded engine is
+    one shard of every lane, on the engine's device and stream, which the
+    loop thread keeps current (`loop_stream`)."""
 
-    def __init__(self, device: torch.device, lo: int, hi: int) -> None:
-        self.device, self.lo, self.hi = device, lo, hi
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    def __init__(self, device: torch.device, lo: int, hi: int,
+                 stream: Optional["torch.cuda.Stream"], loop_stream: bool) -> None:
+        self.device, self.lo, self.hi, self.stream = device, lo, hi, stream
+        self._switch = stream is not None and not loop_stream
 
     def on(self):
-        """Context that makes the shard's stream (and card) current."""
+        """Context that makes the shard's stream (and card) current on the
+        engine's loop thread: a no-op on the CPU and for the shard on the
+        loop thread's own stream, so the unsharded engine's steps switch
+        no stream."""
+        if not self._switch:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def alloc(self):
+        """Context that makes the shard's stream current on any thread,
+        for allocating its tensors on it."""
         if self.stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
+
+
+def _superstep_fn(cfg: KernelConfig, steps: int, devices: Tuple[torch.device, ...]):
+    """The engine's super-step over its shards' devices: fn(states,
+    inboxes, ticks, resids, routes, rdeltas, streams=None, into=None), each
+    a sequence of one per shard, -> (states, outs, plans, resids,
+    resid_counts), each a tuple of one per shard. Over several shards the
+    sharded super-step with its candidate exchange; over one the unsharded
+    super-step, which has no exchange."""
+    if len(devices) > 1:
+        return make_sharded_multi_step_fn(cfg, steps, devices)
+    fn = make_multi_step_fn(cfg, steps)
+
+    def one(states, inboxes, ticks, resids, routes, rdeltas, streams=None, into=None):
+        ctx = contextlib.nullcontext() if streams is None else torch.cuda.stream(streams[0])
+        with ctx:
+            res = fn(states[0], inboxes[0], ticks[0], resids[0], routes[0], rdeltas[0],
+                     into=None if into is None else into[0])
+        return tuple((x,) for x in res)
+
+    return one
 
 
 def _engine_device(name) -> torch.device:
@@ -1099,12 +1133,13 @@ class VectorEngine:
         # small writes) is enqueued on it, so stream order alone orders
         # them; None on the CPU
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
-        # multi-device: shard the group axis over mesh_devices() in
-        # contiguous lane blocks (the reference's NamedSharding(P("groups"))):
-        # global lane g lives on shard g // Gl, row g % Gl; with one device
-        # shard_over_mesh is a no-op, as it is for the JAX package
+        # the group axis in contiguous lane blocks, the shards (the
+        # reference's NamedSharding(P("groups"))): global lane g lives on
+        # shard g // Gl, row g % Gl. shard_over_mesh spreads them over
+        # mesh_devices(), each shard on its own stream; with one device it
+        # is a no-op, as it is for the JAX package, and the engine is one
+        # shard on its own device and stream
         self._mesh_devices = 0  # 0 = unsharded single-device engine
-        self._shards: Optional[List[_Shard]] = None
         groups_requested = self.kcfg.groups
         devs = (
             mesh_devices(self.device)
@@ -1121,12 +1156,21 @@ class VectorEngine:
             # block; stamped in step_stats (padded_groups, mesh_devices),
             # and the ghost lanes are never handed out by the allocator
             self.kcfg = self.kcfg._replace(groups=-(-self.kcfg.groups // n) * n)
-            Gl = self.kcfg.groups // n
-            self._shards = [
-                _Shard(_engine_device(d), i * Gl, (i + 1) * Gl)
-                for i, d in enumerate(devs)
-            ]
+            devs = tuple(_engine_device(d) for d in devs)
+            streams = [torch.cuda.Stream(d) if self._cuda else None for d in devs]
             self._mesh_devices = n
+        else:
+            devs, streams = (self.device,), [self._stream]
+        Gl = self.kcfg.groups // len(devs)
+        self._shards = [
+            _Shard(d, i * Gl, (i + 1) * Gl, st, st is self._stream)
+            for i, (d, st) in enumerate(zip(devs, streams))
+        ]
+        # one sharded super-step in flight per process; one shard has no
+        # exchange and never takes the lock
+        self._launch_mu = (
+            _MESH_LAUNCH_MU if len(devs) > 1 else contextlib.nullcontext()
+        )
         self._groups_requested = groups_requested
         self._padded_groups = self.kcfg.groups - groups_requested
         self.clock = _SharedClock()
@@ -1234,27 +1278,20 @@ class VectorEngine:
         self._m_resid = np.zeros(G, np.int32)
         self._pending_rep_copies: list = []
         self._routes_dirty = True
-        if self._shards is not None:
-            # every shard its own state tree (and residual inbox), allocated
-            # on its own stream; the engine's _state stays unset
-            Gl = self.kcfg.groups // self._mesh_devices
-            lcfg = self.kcfg._replace(groups=Gl)
-            for sh in self._shards:
-                with sh.on():
-                    sh.state = init_state(lcfg, device=sh.device)
-                    if self._multi > 1:
-                        sh.resid = make_empty_inbox(lcfg, device=sh.device)
-            if self._multi > 1:
-                self._multi_fn = make_sharded_multi_step_fn(
-                    self.kcfg, self._multi,
-                    tuple(sh.device for sh in self._shards),
+        # every shard its own state tree (and, at K>1, residual inbox),
+        # allocated on its own stream
+        lcfg = self.kcfg._replace(groups=Gl)
+        for sh in self._shards:
+            with sh.alloc():
+                sh.state = init_state(lcfg, device=sh.device)
+                sh.resid = (
+                    make_empty_inbox(lcfg, device=sh.device)
+                    if self._multi > 1 else None
                 )
-        else:
-            with self._on_stream():
-                if self._multi > 1:
-                    self._multi_fn = make_multi_step_fn(self.kcfg, self._multi)
-                    self._resid = make_empty_inbox(self.kcfg, device=self.device)
-                self._state: RaftTensors = init_state(self.kcfg, device=self.device)
+        if self._multi > 1:
+            self._multi_fn = _superstep_fn(
+                self.kcfg, self._multi, tuple(sh.device for sh in self._shards)
+            )
         # lanes keyed by (host, cluster_id): a SHARED core hosts replicas
         # from several NodeHosts (hosts = handle ids), so cluster_id alone
         # does not identify a lane
@@ -1320,9 +1357,9 @@ class VectorEngine:
         # the logical log fill from the decode-maintained mirrors, so
         # reading the census costs zero device syncs at any point
         self.census = DeviceCensus()
-        trees = [("state", t) for t in self._states()]
+        trees = [("state", sh.state) for sh in self._shards]
         if self._multi > 1:
-            trees += [("resid", t) for t in self._resids()]
+            trees += [("resid", sh.resid) for sh in self._shards]
         planes: Dict[str, int] = {}
         for kind, tree in trees:
             for name, arr in tree._asdict().items():
@@ -1401,25 +1438,24 @@ class VectorEngine:
             self._np_route = self._bufsets[0][3].np["route"]
             self._np_rdelta = self._bufsets[0][3].np["rdelta"]
             self._np_route.fill(-1)
-        if self._shards is not None:
-            # per shard: device planes of its Gl lanes and, on the card, a
-            # pinned copy of its slice of each host buffer set (filled at
-            # dispatch, then ONE host->device copy per shard)
-            Gl = G // self._mesh_devices
-            llayout = [(f, (Gl,) + shape[1:], dt) for f, shape, dt in layout]
-            for sh in self._shards:
-                with sh.on():
-                    sh.dev_in = _Planes(llayout, sh.device)
-                sh.dev_inbox = Inbox(**{f: sh.dev_in.t[f] for f in Inbox._fields})
-                sh.host_ins = (
-                    [_Planes(llayout, "cpu", pin=True) for _ in self._bufsets]
-                    if self._cuda else None
-                )
-        else:
-            with self._on_stream():
-                self._dev_in = _Planes(layout, self.device)
-            t = self._dev_in.t
-            self._dev_inbox = Inbox(**{f: t[f] for f in Inbox._fields})
+        # per shard: device planes of its Gl lanes and the host planes its
+        # ONE host->device copy reads: the buffer sets themselves when one
+        # shard holds every lane; else, on the card, a pinned copy of its
+        # slice of each set (filled at dispatch), and on the CPU none
+        # (dispatch fills its device planes directly)
+        n = len(self._shards)
+        Gl = G // n
+        llayout = [(f, (Gl,) + shape[1:], dt) for f, shape, dt in layout]
+        for sh in self._shards:
+            with sh.alloc():
+                sh.dev_in = _Planes(llayout, sh.device)
+            sh.dev_inbox = Inbox(**{f: sh.dev_in.t[f] for f in Inbox._fields})
+            if n == 1:
+                sh.host_ins = [host for *_, host in self._bufsets]
+            elif self._cuda:
+                sh.host_ins = [_Planes(llayout, "cpu", pin=True) for _ in self._bufsets]
+            else:
+                sh.host_ins = None
         self._buf_idx = 0
         self._buf, self._ticks, self._host_inbox, self._host_in = self._bufsets[0]
         # fetch side: the K=1 step writes its StepOutput into views of one
@@ -1447,40 +1483,29 @@ class VectorEngine:
                 ] + [("resid_count", (G,), i32)]
             return lay
 
-        self._dev_out = None
         n_slots = 1 if self._multi > 1 else 2
-        if self._shards is not None:
-            # per shard: device output planes (on the card, at K=1 and at
-            # K>1) and its part of each pinned host slot, so that ONE
-            # device->host copy per shard lands its outputs
-            lout = out_layout_of(G // self._mesh_devices)
-            for sh in self._shards:
-                # the step's (K=1) or the super-step's (K>1: `into`)
-                # output trees over the device planes; None on the CPU,
-                # whose steps return fresh trees
-                sh.dev_out = sh.outs = sh.plans = None
-                if self._cuda:
-                    with sh.on():
-                        sh.dev_out = _Planes(lout, sh.device)
-                    t = sh.dev_out.t
-                    sh.outs = StepOutput(**{f: t[f] for f in StepOutput._fields})
-                    if self._multi > 1:
-                        sh.plans = RoutePlan(
-                            **{f: t["plan_" + f] for f in RoutePlan._fields}
-                        )
-            self._out_slots = [
-                [_Planes(lout, "cpu", pin=self._cuda) for _ in self._shards]
-                for _ in range(n_slots)
-            ]
-        else:
-            out_layout = out_layout_of(G)
-            if self._multi == 1 and self._cuda:
-                with self._on_stream():
-                    self._dev_out = _Planes(out_layout, self.device)
-            self._out_slots = [
-                _Planes(out_layout, "cpu", pin=self._cuda)
-                for _ in range(n_slots)
-            ]
+        # per shard: device output planes (on the card, at K=1 and at K>1)
+        # and its part of each pinned host slot, so that ONE device->host
+        # copy per shard lands its outputs
+        lout = out_layout_of(Gl)
+        for sh in self._shards:
+            # the step's (K=1) or the super-step's (K>1: `into`) output
+            # trees over the device planes; None on the CPU, whose steps
+            # return fresh trees
+            sh.dev_out = sh.outs = sh.plans = None
+            if self._cuda:
+                with sh.alloc():
+                    sh.dev_out = _Planes(lout, sh.device)
+                t = sh.dev_out.t
+                sh.outs = StepOutput(**{f: t[f] for f in StepOutput._fields})
+                if self._multi > 1:
+                    sh.plans = RoutePlan(
+                        **{f: t["plan_" + f] for f in RoutePlan._fields}
+                    )
+        self._out_slots = [
+            [_Planes(lout, "cpu", pin=self._cuda) for _ in self._shards]
+            for _ in range(n_slots)
+        ]
         self._out_idx = 0
         # columnar row staging for _pack: rows accumulate as python column
         # lists and land in the numpy planes as ONE fancy-indexed scatter
@@ -1492,54 +1517,20 @@ class VectorEngine:
             "hint": [], "hint_high": [], "n_entries": [], "ents": [],
         }
 
-    def _on_stream(self):
-        """Context that makes the engine's stream current (a no-op on the
-        CPU)."""
-        if self._stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
-
     # ------------------------------------------------- the shards' trees
-    def _states(self) -> List[RaftTensors]:
-        """The device state: one tree, or one per shard."""
-        if self._shards is None:
-            return [self._state]
-        return [sh.state for sh in self._shards]
-
-    def _resids(self) -> List[Inbox]:
-        if self._shards is None:
-            return [self._resid]
-        return [sh.resid for sh in self._shards]
-
-    def _state_of(self, sh: Optional[_Shard]) -> RaftTensors:
-        """The state tree of shard sh (the engine's when None)."""
-        return self._state if sh is None else sh.state
-
-    def _shard_of(self, g: int) -> Optional[_Shard]:
-        """The shard that holds lane g (None when unsharded)."""
-        if self._shards is None:
-            return None
-        return self._shards[g // (self.kcfg.groups // self._mesh_devices)]
-
-    @staticmethod
-    def _on_shard(sh: Optional[_Shard]):
-        """Context that makes shard sh's stream current (a no-op when None:
-        the loop thread's stream is the engine's)."""
-        return contextlib.nullcontext() if sh is None else sh.on()
+    def _shard_of(self, g: int) -> _Shard:
+        """The shard that holds lane g."""
+        return self._shards[g // self._shards[0].hi]
 
     def _lane_rows(self, g: int):
         """(state tree, residual inbox or None, row, stream context) of lane
-        g: its shard's trees and its row there when sharded."""
+        g: its shard's trees and its row there."""
         sh = self._shard_of(g)
-        if sh is None:
-            return self._state, getattr(self, "_resid", None), g, self._on_shard(None)
-        return sh.state, getattr(sh, "resid", None), g - sh.lo, sh.on()
+        return sh.state, sh.resid, g - sh.lo, sh.on()
 
     def _blocks(self, *arrays):
-        """Per shard (or once, unsharded): (shard or None, stream context,
-        each host array's rows of that shard)."""
-        if self._shards is None:
-            return [(None, self._on_shard(None), arrays)]
+        """Per shard: (shard, stream context, each host array's rows of
+        that shard)."""
         return [
             (sh, sh.on(), tuple(a[sh.lo:sh.hi] for a in arrays))
             for sh in self._shards
@@ -1792,7 +1783,7 @@ class VectorEngine:
             self._m_clock_ok = want
             for sh, ctx, (w,) in self._blocks(want):
                 with ctx:
-                    self._state_of(sh).clock_ok.copy_(
+                    sh.state.clock_ok.copy_(
                         torch.from_numpy(np.ascontiguousarray(w))
                     )
 
@@ -1970,77 +1961,34 @@ class VectorEngine:
                 self.watchdog.tick_burst_clamped()
         else:
             self._ticks.fill(0)
-        # ONE host->device copy ships the whole staging buffer: the inbox
-        # planes, the ticks and, at K>1, the route/delta planes (small G x P
-        # arrays, rebuilt host-side only when lane topology changes); the
-        # device planes are views of the buffer it lands in
+        # ONE host->device copy per shard ships its staging buffer: the
+        # inbox planes, the ticks and, at K>1, the route/delta planes (small
+        # G x P arrays, rebuilt host-side only when lane topology changes);
+        # the device planes are views of the buffer it lands in. Then at
+        # K=1 one step per shard (no exchange, as in the reference's K=1
+        # program over the mesh), at K>1 the super-step over the shards;
+        # then ONE device->host copy per shard into its part of the pinned
+        # slot, with one event per shard
         prof.start()
-        if self._shards is not None:
-            self._run_sharded(work, packs)
-            return
-        dev_in = self._dev_in
-        dev_in.bytes.copy_(self._host_in.bytes, non_blocking=self._cuda)
-        tarr = dev_in.t["ticks"]
-        if self._multi > 1:
-            self._state, outs, plans, self._resid, resid_count = (
-                self._multi_fn(
-                    self._state, self._dev_inbox, tarr, self._resid,
-                    dev_in.t["route"], dev_in.t["rdelta"],
-                )
-            )
-            slot = self._ship_super(outs, plans, resid_count)
-            prof.end("dispatch")
-            o, pl, rc = self._fetch_super(slot)
-            self._m_resid = rc
-            self._decode_super(work, packs, o, pl)
-            return
-        out = self._dev_out
-        self._state, out = step_batch(
-            self._state, self._dev_inbox, tarr, self.kcfg,
-            out=None if out is None else StepOutput(**out.t),
-        )
-        slot = self._ship_output(out)
-        prof.end("dispatch")
-        if self._overlap:
-            # pipeline: decode step t-1 while the device computes step t
-            # (the launch and the copy into the pinned slot are async;
-            # `slot` carries the event the fetch waits on). Ordering
-            # invariants live inside each step's decode, so pipelining
-            # steps preserves them; pack staleness is accounted for by the
-            # per-lane packed_pending window tracking. Swap FIRST so a
-            # decode exception cannot also lose the just-dispatched step.
-            pending, self._pending = self._pending, (work, packs, slot)
-            if pending is not None:
-                self._sstats["steps_pipelined"] += 1
-            self._flush_one(pending)
-        else:
-            self._decode(work, packs, self._fetch_output(slot))
-
-    def _run_sharded(self, work, packs) -> None:
-        """_run_once's dispatch and fetch over the shards: ONE host->device
-        copy per shard from its slice of the host buffer set, on its stream;
-        at K=1 one step_batch per shard (no exchange, as in the reference's
-        K=1 program over the mesh), at K>1 the sharded super-step with its
-        candidate exchange; then ONE device->host copy per shard into its
-        part of the pinned slot, with one event per shard."""
-        prof = self.profiler
         shards = self._shards
         host = self._host_in.np
         for sh in shards:
             stage = sh.dev_in if sh.host_ins is None else sh.host_ins[self._buf_idx]
-            for f, a in stage.np.items():
-                a[...] = host[f][sh.lo:sh.hi]
+            if stage is not self._host_in:
+                # the shard's slice of the pack buffer
+                for f, a in stage.np.items():
+                    a[...] = host[f][sh.lo:sh.hi]
             if sh.host_ins is not None:
                 # lint: allow(locks/lock-in-hot-loop) a CUDA stream context, not a
                 # lock: one per shard per step
                 with sh.on():
-                    sh.dev_in.bytes.copy_(stage.bytes, non_blocking=True)
+                    sh.dev_in.bytes.copy_(stage.bytes, non_blocking=self._cuda)
         if self._multi > 1:
             kw = {}
             if self._cuda:
                 kw = dict(streams=[sh.stream for sh in shards],
                           into=[(sh.outs, sh.plans) for sh in shards])
-            with _MESH_LAUNCH_MU:
+            with self._launch_mu:
                 states, outs, plans, resids, rcs = self._multi_fn(
                     [sh.state for sh in shards], [sh.dev_inbox for sh in shards],
                     [sh.dev_in.t["ticks"] for sh in shards],
@@ -2070,7 +2018,13 @@ class VectorEngine:
         slot = self._ship_output(outs)
         prof.end("dispatch")
         if self._overlap:
-            # pipelined as the unsharded path (see _run_once)
+            # pipeline: decode step t-1 while the device computes step t
+            # (the launch and the copy into the pinned slot are async;
+            # `slot` carries the events the fetch waits on). Ordering
+            # invariants live inside each step's decode, so pipelining
+            # steps preserves them; pack staleness is accounted for by the
+            # per-lane packed_pending window tracking. Swap FIRST so a
+            # decode exception cannot also lose the just-dispatched step.
             pending, self._pending = self._pending, (work, packs, slot)
             if pending is not None:
                 self._sstats["steps_pipelined"] += 1
@@ -2079,11 +2033,12 @@ class VectorEngine:
             self._decode(work, packs, self._fetch_output(slot))
 
     def _ship_shards(self, planes) -> tuple:
-        """Sharded ship: `planes[i]` maps slot plane names to shard i's
-        tensors (on the card: those its device output planes do not hold
-        yet, copied into them first). ONE device->host copy per shard into
-        its part of the next pinned slot and an event on its stream; on the
-        CPU a copy per plane. Returns (slot, events)."""
+        """Ship the step's planes: `planes[i]` maps slot plane names to
+        shard i's tensors (on the card: those its device output planes do
+        not hold yet, copied into them first). ONE device->host copy per
+        shard into its part of the next pinned slot and an event on its
+        stream; on the CPU a copy per plane. Returns (slot, events); the
+        fetch waits."""
         slot = self._next_slot()
         evs = []
         for sh, part, named in zip(self._shards, slot, planes):
@@ -2105,8 +2060,11 @@ class VectorEngine:
         return slot, evs
 
     def _join_slot(self, slot) -> Dict[str, np.ndarray]:
-        """The whole-G planes of a sharded slot: each plane's shard parts
-        joined along the lane axis (axis 1 of the stacked K>1 planes)."""
+        """The whole-G planes of a slot: each plane's shard parts joined
+        along the lane axis (axis 1 of the stacked K>1 planes); one shard's
+        are its planes themselves."""
+        if len(slot) == 1:
+            return dict(slot[0].np)
         out = {}
         for f in slot[0].np:
             ax = 1 if self._multi > 1 and f != "resid_count" else 0
@@ -2118,112 +2076,66 @@ class VectorEngine:
         self._out_idx = (self._out_idx + 1) % len(self._out_slots)
         return slot
 
-    def _ship_output(self, out: StepOutput):
-        """Enqueue the step's StepOutput into the next pinned host slot:
-        on the card ONE async copy of the device output buffer (the step
-        wrote its planes into views of it), then an event; on the CPU a
-        copy per plane. Returns (slot, event); the fetch waits."""
-        if self._shards is not None:
-            return self._ship_shards(
-                [dict(zip(StepOutput._fields, o)) for o in out]
-            )
-        slot = self._next_slot()
-        if self._cuda:
-            slot.bytes.copy_(self._dev_out.bytes, non_blocking=True)
-            ev = torch.cuda.Event()
-            # lint: allow(telemetry/unguarded) torch.cuda.Event.record, not
-            # telemetry: one marker enqueued on the stream per step, the
-            # event the fetch seam waits on
-            ev.record(self._stream)
-            return slot, ev
-        for f, t in zip(StepOutput._fields, out):
-            slot.t[f].copy_(t)
-        return slot, None
+    def _ship_output(self, outs):
+        """Enqueue the step's StepOutput, one tree per shard, into the next
+        pinned host slot (_ship_shards): on the card the step wrote its
+        planes into views of the shard's device output buffer, which ONE
+        async copy ships. Returns (slot, events); the fetch waits."""
+        return self._ship_shards([
+            {} if self._cuda else dict(zip(StepOutput._fields, o)) for o in outs
+        ])
 
-    def _ship_super(self, outs: StepOutput, plans: RoutePlan, resid_count):
+    def _ship_super(self, outs, plans, resid_count):
         """The K>1 twin of _ship_output: the stacked per-step outputs, the
-        per-step route plans and the residual occupancy land in ONE pinned
-        host buffer (async copies per plane, one event). Sharded: one
-        copy per shard (_ship_shards); `outs`, `plans` and `resid_count`
-        then hold one tree per shard."""
-        if self._shards is not None:
-            named = []
-            for o, p, rc in zip(outs, plans, resid_count):
-                # on the card the super-step wrote outs and plans into
-                # the shard's device output planes (`into`)
-                d = {} if self._cuda else dict(zip(StepOutput._fields, o))
-                if not self._cuda:
-                    d.update(("plan_" + f, x) for f, x in zip(RoutePlan._fields, p))
-                d["resid_count"] = rc
-                named.append(d)
-            return self._ship_shards(named)
-        slot = self._next_slot()
-        t = slot.t
-        nb = self._cuda
-        for f, x in zip(StepOutput._fields, outs):
-            t[f].copy_(x, non_blocking=nb)
-        for f, x in zip(RoutePlan._fields, plans):
-            t["plan_" + f].copy_(x, non_blocking=nb)
-        t["resid_count"].copy_(resid_count, non_blocking=nb)
-        ev = None
-        if nb:
-            ev = torch.cuda.Event()
-            # lint: allow(telemetry/unguarded) torch.cuda.Event.record, not
-            # telemetry: one marker per super-step, the fetch seam's event
-            ev.record(self._stream)
-        return slot, ev
+        per-step route plans and the residual occupancy of each shard (one
+        tree each) land in its part of ONE pinned host slot."""
+        named = []
+        for o, p, rc in zip(outs, plans, resid_count):
+            # on the card the super-step wrote outs and plans into the
+            # shard's device output planes (`into`)
+            d = {} if self._cuda else dict(zip(StepOutput._fields, o))
+            if not self._cuda:
+                d.update(("plan_" + f, x) for f, x in zip(RoutePlan._fields, p))
+            d["resid_count"] = rc
+            named.append(d)
+        return self._ship_shards(named)
 
     def _fetch_output(self, pending) -> dict:
         """THE consolidated device->host sync for the whole StepOutput,
-        shared by the overlap and non-overlap paths: one event wait for
-        the copy _ship_output enqueued. The planes ship together rather
-        than per-plane masked gets: every plane is G- or GxP-sized, so
-        per-copy overhead dominates transfer cost, and each decode phase
-        masks its own work list host-side from send_flags/dirty lanes.
-        The returned arrays are views of the pinned slot, valid until the
-        slot's next use two dispatches later."""
+        shared by the overlap and non-overlap paths: one wait on each
+        shard's event for the copy _ship_output enqueued, one seam. The
+        planes ship together rather than per-plane masked gets: every
+        plane is G- or GxP-sized, so per-copy overhead dominates transfer
+        cost, and each decode phase masks its own work list host-side from
+        send_flags/dirty lanes. The returned arrays are views of the pinned
+        slot (joined copies when sharded), valid until the slot's next use
+        two dispatches later."""
         prof = self.profiler
         prof.start()
-        slot, ev = pending
-        if self._shards is not None:
-            # one event per shard; still ONE blessed seam
-            for e in ev:
-                e.synchronize()
-            note_seam_sync()
-            prof.end("fetch")
-            return self._join_slot(slot)
-        if ev is not None:
-            ev.synchronize()
+        slot, evs = pending
+        for e in evs:
+            e.synchronize()
         note_seam_sync()  # runtime sync audit: the ONE blessed transfer
         prof.end("fetch")
-        return dict(slot.np)
+        return self._join_slot(slot)
 
     def _fetch_super(self, pending):
-        """The multi-step twin of _fetch_output: ONE sync for the whole
+        """The multi-step twin of _fetch_output: ONE seam for the whole
         K-step super-step (the stacked per-step StepOutput planes, the
         per-step route plans and the residual-inbox occupancy ship
         together). This is the other blessed sync seam — it fires once
-        per K protocol steps."""
+        per K protocol steps, whatever the number of shards."""
         prof = self.profiler
         prof.start()
-        slot, ev = pending
-        if self._shards is not None:
-            for e in ev:
-                e.synchronize()
-            note_seam_sync()  # one seam per super-step, whatever n
-            prof.end("fetch")
-            n = self._join_slot(slot)
-            o = {f: n[f] for f in StepOutput._fields}
-            pl = {f: n["plan_" + f] for f in RoutePlan._fields}
-            return o, pl, n["resid_count"].astype(np.int32)
-        if ev is not None:
-            ev.synchronize()
+        slot, evs = pending
+        for e in evs:
+            e.synchronize()
         note_seam_sync()  # runtime sync audit: one transfer per K steps
         prof.end("fetch")
-        n = slot.np
+        n = self._join_slot(slot)
         o = {f: n[f] for f in StepOutput._fields}
         pl = {f: n["plan_" + f] for f in RoutePlan._fields}
-        return o, pl, np.array(n["resid_count"], np.int32)
+        return o, pl, n["resid_count"].astype(np.int32)
 
     def _flush_pending(self) -> None:
         pending, self._pending = self._pending, None
@@ -3707,7 +3619,7 @@ class VectorEngine:
                     continue
                 with ctx:
                     adv = self._h2d(np.stack([m, f, t]).astype(np.int32), sh)
-                    advance_compaction(self._state_of(sh), adv[0].bool(), adv[1], adv[2])
+                    advance_compaction(sh.state, adv[0].bool(), adv[1], adv[2])
         if bool(np.any(o["last_index"] > _REBASE_THRESHOLD)):
             # never rebase under an in-flight step: the mirrors and the
             # pending output would disagree by the rebase delta. The
@@ -3741,10 +3653,7 @@ class VectorEngine:
                     continue
                 with ctx:
                     d_dev = self._h2d(d, sh)
-                    if sh is None:
-                        self._state = rebase(self._state, d_dev)
-                    else:
-                        sh.state = rebase(sh.state, d_dev)
+                    sh.state = rebase(sh.state, d_dev)
                     if self._multi > 1 and parked.any():
                         # the device-resident residual inbox carries
                         # indexes in DESTINATION units: shift the
@@ -3752,7 +3661,7 @@ class VectorEngine:
                         # its destination lane's delta (type-aware,
                         # mirroring which fields _pack_wire stages per
                         # message type). Rare path — eager device ops.
-                        rebase_resid(self._resid if sh is None else sh.resid, d_dev)
+                        rebase_resid(sh.resid, d_dev)
 
     # ----------------------------------------------------------- reconciles
     def _apply_reconciles(self) -> None:
@@ -3804,7 +3713,7 @@ class VectorEngine:
             for sh, ctx, (m,) in self._blocks(mask):
                 if m.any():
                     with ctx:
-                        clear_pending_cc(self._state_of(sh), self._h2d(m, sh))
+                        clear_pending_cc(sh.state, self._h2d(m, sh))
 
     def _lane_of(self, node) -> Optional[_Lane]:
         lane = node._vec_lane
@@ -4031,17 +3940,16 @@ class VectorEngine:
         ("log_is_cc", bool),
     )
 
-    def _h2d(self, a: np.ndarray, sh: Optional[_Shard] = None) -> torch.Tensor:
-        """A host array on the engine's device (shard sh's, under its
-        stream context, when given). On the card the bytes are staged in
-        pinned memory and copied asynchronously on the current stream (the
-        pinned block is not reused before the copy ran), so the rare-path
-        writes never wait for the step in flight."""
+    def _h2d(self, a: np.ndarray, sh: _Shard) -> torch.Tensor:
+        """A host array on shard sh's device, under its stream context. On
+        the card the bytes are staged in pinned memory and copied
+        asynchronously on the current stream (the pinned block is not
+        reused before the copy ran), so the rare-path writes never wait for
+        the step in flight."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         if not self._cuda:
             return t.clone()
-        dev = self.device if sh is None else sh.device
-        return t.pin_memory().to(dev, non_blocking=True)
+        return t.pin_memory().to(sh.device, non_blocking=True)
 
     def _activate_batch(self, lanes: List[_Lane]) -> None:
         """Activate many lanes with ONE index_put_ per plane
@@ -4064,34 +3972,31 @@ class VectorEngine:
                 lane.active = True
         if not vals:
             return
-        if self._shards is None:
-            self._activate_rows(None, gs, vals)
-        else:
-            # one batch per shard that holds lanes of this one, in its rows
-            Gl = self.kcfg.groups // self._mesh_devices
-            by_shard: Dict[int, Tuple[list, list]] = {}
-            for g, v in zip(gs, vals):
-                rows, vs = by_shard.setdefault(g // Gl, ([], []))
-                rows.append(g % Gl)
-                vs.append(v)
-            for i, (rows, vs) in sorted(by_shard.items()):
-                self._activate_rows(self._shards[i], rows, vs)
+        # one batch per shard that holds lanes of this one, in its rows
+        Gl = self._shards[0].hi
+        by_shard: Dict[int, Tuple[list, list]] = {}
+        for g, v in zip(gs, vals):
+            rows, vs = by_shard.setdefault(g // Gl, ([], []))
+            rows.append(g % Gl)
+            vs.append(v)
+        for i, (rows, vs) in sorted(by_shard.items()):
+            self._activate_rows(self._shards[i], rows, vs)
         self._routes_dirty = True
         self._ready.set()
 
-    def _activate_rows(self, sh: Optional[_Shard], rows: List[int], vals: List[dict]) -> None:
-        """One activate_lanes batch into one state tree (the engine's, or
-        shard sh's, whose `rows` are lane rows of that shard)."""
+    def _activate_rows(self, sh: _Shard, rows: List[int], vals: List[dict]) -> None:
+        """One activate_lanes batch into shard sh's state tree (`rows` are
+        lane rows of that shard)."""
         n = len(vals)
         bucket = 1
         while bucket < n:
             bucket *= 4
-        bucket = min(bucket, self.kcfg.groups if sh is None else sh.hi - sh.lo)
+        bucket = min(bucket, sh.hi - sh.lo)
         pad = bucket - n
         # padding repeats the last lane (duplicate scatter indexes with
         # identical values are order-independent)
         gi = np.asarray(rows + [rows[-1]] * pad, np.int64)
-        with self._on_shard(sh):
+        with sh.on():
             v = {}
             for key, dtype in self._ACT_COLS:
                 a = np.asarray([x[key] for x in vals], dtype)
@@ -4103,7 +4008,7 @@ class VectorEngine:
                 if pad:
                     a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
                 v[key] = self._h2d(a, sh)
-            activate_lanes(self._state_of(sh), self._h2d(gi, sh), v)
+            activate_lanes(sh.state, self._h2d(gi, sh), v)
 
     def _logdb_state(self, node) -> State:
         st, _ = node.log_reader.node_state()
@@ -4155,7 +4060,7 @@ class VectorEngine:
         # residual rows or pending payload copies to the next tenant
         self._m_resid[g] = 0
         if self._multi > 1:
-            with self._on_shard(self._shard_of(g)):
+            with self._shard_of(g).on():
                 write_lane_rows(resid, row, {"mtype": MSG.NONE})
             self._pending_rep_copies = [
                 c
@@ -4260,7 +4165,7 @@ class VectorEngine:
         if self_slot < 0:
             self_slot = lane.slot_of(node.node_id(), provisional=True)
         new_leader = remap_ref(cur_leader)
-        with self._on_shard(self._shard_of(g)):
+        with self._shard_of(g).on():
             # self-promotion: an observer added as a full member becomes a
             # follower in place, inheriting its replicated log (cf. raft.go
             # addNode / scalar Raft.add_node become_follower path)

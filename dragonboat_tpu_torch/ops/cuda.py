@@ -637,28 +637,22 @@ def ring_gather_cuda(records: Sequence[torch.Tensor],
     """All-gather of n equal-shape i32 tensors (csrc/ring_gather.cu), the
     lane blocks' candidate records on the card path: every shard d gets the
     (n, ...) stack, shard-major, on records[d]'s card, from one launch on
-    that card's current stream. Where a source lies on another card than
-    the destination, the destination's stream first waits on an event
-    recorded on the source card's current stream (the records were written
-    there); `outs` are preallocated stacks or None."""
+    that card's current stream; `outs` are preallocated stacks or None.
+    The records were written on their cards' current streams: _Exchange
+    orders each gather after every source's writes (read after write) and
+    each source's later writes after every gather (write after read)."""
     n = len(records)
     devs = [_on_cuda(x, "ring_gather") for x in records]
     enable_peers(devs)
     if outs is None:
         outs = [torch.empty((n,) + tuple(records[0].shape), dtype=torch.int32, device=d)
                 for d in devs]
-    streams = [torch.cuda.current_stream(d) for d in devs]
-    written = []
-    for st in streams:
-        ev = torch.cuda.Event()
-        ev.record(st)
-        written.append(ev)
+    ex = _Exchange(devs, [torch.cuda.current_stream(d) for d in devs], records, outs)
+    for i in range(n):
+        ex.written(i)
     for d in range(n):
-        for s in range(n):
-            if streams[s] != streams[d]:
-                streams[d].wait_event(written[s])
-        _Launcher(devs[d], streams[d], switch=True)(
-            "ring_gather_launch", _gather_params(records, outs[d]), "ring_gather")
+        ex.gather(d)
+    ex.release()
     return list(outs)
 
 
@@ -711,13 +705,18 @@ class _Exchange:
             if j != i:
                 st.wait_event(ev)
 
+    def written(self, i: int) -> None:
+        """Shard i's record is written on its stream: its columns-done
+        event."""
+        self.cols_done[i].record(self.streams[i])
+
     def columns(self, i: int, params) -> None:
         """Shard i's columns kernel, after every gather that read its last
         record (write after read), then its columns-done event."""
         if self.started:
             self._wait_all(i, self.gather_done)
         self.launch[i]("route_columns_launch", params, "route_columns")
-        self.cols_done[i].record(self.streams[i])
+        self.written(i)
 
     def gather(self, d: int) -> None:
         """Destination d's gather, after every source's columns kernel (read
@@ -726,6 +725,13 @@ class _Exchange:
         self.launch[d]("ring_gather_launch", self.params[d], "ring_gather")
         self.gather_done[d].record(self.streams[d])
         self.started = True
+
+    def release(self) -> None:
+        """Every source's stream waits on every destination's gather-done
+        event, so that whatever the caller writes next into a record runs
+        after the last pull of it (write after read across the call)."""
+        for i in range(self.n):
+            self._wait_all(i, self.gather_done)
 
 
 def shard_route_cuda(states, outs, routes, rdeltas, cfg: KernelConfig, streams=None):
@@ -841,13 +847,15 @@ class _Block:
         return self.s, self.outs, self.plans, self.resid, resid_count(self.resid)
 
 
-def multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg: KernelConfig, steps: int):
+def multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg: KernelConfig, steps: int,
+                    into=None):
     """The super-step on the card: per inner step one step_batch launch,
     one route_columns launch and the scatter's two launches (route_index,
     route_scatter; the scatter reads the record as a gather of one shard; no
-    gather is launched)."""
+    gather is launched). `into` is the (outs, plans) stacks to write, or
+    None."""
     dev = _on_cuda(s.term, "multi_step")
-    blk = _Block(s, inbox, ticks, resid, route, rdelta, cfg, steps, 1, 0, None)
+    blk = _Block(s, inbox, ticks, resid, route, rdelta, cfg, steps, 1, 0, None, into)
     launch = _Launcher(dev)
     for t in range(steps):
         launch("step_batch_launch", blk.step_p[t], "step_batch")

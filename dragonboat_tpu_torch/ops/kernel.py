@@ -1376,33 +1376,35 @@ def multi_step_batch_reference(
 
 def multi_step_batch(
     s: RaftTensors, inbox: Inbox, ticks, resid: Inbox, route, rdelta,
-    cfg: KernelConfig, steps: int,
+    cfg: KernelConfig, steps: int, into=None,
 ):
     """``steps`` protocol steps with co-hosted traffic routed between lanes
     after each one. On the card: the step kernel and the router kernels,
-    writing every inner step's outputs into stacked planes allocated once
-    and updating the state and the residual in place, with no host sync. On
-    the CPU: multi_step_batch_reference."""
+    writing every inner step's outputs into stacked planes (the caller's
+    (outs, plans) when ``into`` is given, else allocated once) and updating
+    the state and the residual in place, with no host sync. On the CPU:
+    multi_step_batch_reference, which returns fresh stacks."""
     if s.term.device.type == "cuda":
         from .cuda import multi_step_cuda
 
-        return multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg, steps)
+        return multi_step_cuda(s, inbox, ticks, resid, route, rdelta, cfg, steps, into)
     return multi_step_batch_reference(s, inbox, ticks, resid, route, rdelta, cfg, steps)
 
 
 @functools.lru_cache(maxsize=None)
 def make_multi_step_fn(cfg: KernelConfig, steps: int, donate: bool = True):
-    """multi_step(state, inbox, ticks, resid, route, rdelta) -> (state,
-    outs, plans, resid, resid_count), ``steps`` inner steps per call.
+    """multi_step(state, inbox, ticks, resid, route, rdelta, into=None) ->
+    (state, outs, plans, resid, resid_count), ``steps`` inner steps per
+    call (``into``: see multi_step_batch).
 
     With donate=True the kernel path updates the state and the residual
     tensors in place (the JAX package donates both), so the caller must not
     reuse what it passed; donate=False clones them first."""
 
-    def multi_step(s, inbox, ticks, resid, route, rdelta):
+    def multi_step(s, inbox, ticks, resid, route, rdelta, into=None):
         if not donate and s.term.device.type == "cuda":
             s, resid = clone_state(s), clone_state(resid)
-        return multi_step_batch(s, inbox, ticks, resid, route, rdelta, cfg, steps)
+        return multi_step_batch(s, inbox, ticks, resid, route, rdelta, cfg, steps, into)
 
     return multi_step
 

@@ -167,8 +167,8 @@ def test_audit_sees_the_cpu_engine():
 
 # the mutations: (engine method, the read added at its entry)
 MUTATIONS = {
-    "decode_item": ("_decode_apply", "self._state.term[0].item()"),
-    "pack_cpu": ("_pack", "self._state.committed.cpu()"),
+    "decode_item": ("_decode_apply", "self._shards[0].state.term[0].item()"),
+    "pack_cpu": ("_pack", "self._shards[0].state.committed.cpu()"),
 }
 
 
@@ -189,7 +189,7 @@ def test_audit_reports_a_read_added_to_a_stage(vec_host, monkeypatch, stage):
            f"    return orig(self, *a, **k)\n")
     exec(compile(src, vector.__file__, "exec"), ns)
     monkeypatch.setattr(vector.VectorEngine, method, ns[f"mutant_{method}"])
-    assert vec_host.engine.core._state.term.device.type == "cpu"
+    assert vec_host.engine.core._shards[0].state.term.device.type == "cpu"
     try:
         _mark, _now, new_pkg, _d = _audited_traffic(vec_host, stage, n=4)
     finally:

@@ -169,8 +169,12 @@ def test_shard_tree_round_trip_and_device_rule():
     with pytest.raises(ValueError, match="visible"):
         K.make_sharded_multi_step_fn(SKCFG, 4, (torch.device("cuda", 0),
                                                  torch.device("cuda", 1)))
-    # a shard whose state lies elsewhere than its device is refused
+    # a call with another count of shards than the fn's is refused, and so
+    # is a shard whose state lies elsewhere than its device
     fn = K.make_sharded_multi_step_fn(SKCFG, 4, (CPU, CPU))
     s2 = K.shard_tree(T.init_state(SKCFG, device="cpu"), 2)
     with pytest.raises(ValueError, match="every argument must hold 2"):
         fn(s2[:1], (), (), (), (), ())
+    elsewhere = [type(s)(*(t.to("meta") for t in s)) for s in s2]
+    with pytest.raises(ValueError, match="shard 0's state must live on cpu, not meta"):
+        fn(elsewhere, *([(None, None)] * 5))
