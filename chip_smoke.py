@@ -64,7 +64,17 @@ field), its wall and busy time against the unsharded one's, then configs
 6 and 2 through NodeHost with shard_over_mesh (every gate, the mesh
 stamps, no host message for co-hosted traffic at K=8, the launches of
 every kernel per shard); it prints how many distinct cards it spanned,
-and where several are visible also runs over them. After
+and where several are visible also runs over them. Phase 11 runs the
+reference's engine-level scenarios through NodeHost on the card and
+asserts their tests' verdicts: witness lanes (zero payload, the witness
+in the commit quorum) at K=1 and on a K=8 core, and the pre-vote rejoin
+storm with pre-vote on and off, each at config 2's width (1,024 groups x
+3 replicas on one core); the lease grant, local read, probe and fallback;
+a streamed install resumed after a host crash, and its abort; a crash
+mid snapshot save, then the rejoin; each scenario's recorded states
+(witnesses, pre-candidates, live leases, installs in flight) then hold
+the step kernel, and at K=8 the router, against their plain versions.
+After
 each K=1 engine run of phases 5-9 the step kernel is held against its
 plain version on states that run stepped, at its own lanes, window and
 inbox depth, and after phase 8's K=8 round the kernel super-step (step
@@ -1099,7 +1109,9 @@ def _kv_sm():
     return KV
 
 
-def _fault_host(nid, addrs, reg, workdir, share_scope, device, rtt_ms=FAULT_RTT_MS):
+def _fault_host(nid, addrs, reg, workdir, share_scope, device, rtt_ms=FAULT_RTT_MS,
+                recv_rate=0):
+    """The reference tests' vector host: 32 lanes, P=4, W=64, 5 ms ticks."""
     from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig
     from dragonboat_tpu_torch.nodehost import NodeHost
     from dragonboat_tpu_torch.transport.loopback import loopback_factory
@@ -1108,6 +1120,7 @@ def _fault_host(nid, addrs, reg, workdir, share_scope, device, rtt_ms=FAULT_RTT_
         deployment_id=11, rtt_millisecond=rtt_ms,
         nodehost_dir=f"{workdir}/h{nid}", raft_address=addrs[nid],
         raft_rpc_factory=lambda listen: loopback_factory(listen, reg),
+        max_snapshot_recv_bytes_per_second=recv_rate,
         engine=EngineConfig(kind="vector", max_groups=32, max_peers=4, log_window=64,
                             share_scope=share_scope, device=device)))
 
@@ -2449,6 +2462,638 @@ def phase_mesh(cuda, K, kb, card):
     return out
 
 
+# ------------- phase 11: the reference's engine-level scenarios on the card
+
+# (a) and (b) at BASELINE config 2's width: 1,024 groups x 3 replicas on one
+# shared core, config 2's engine shape (W=256, inbox 4, 64 entries a
+# message), 10 ms ticks. Elections 50 ticks and heartbeats 10: the storm
+# isolates a replica for 8 election timeouts (the reference storm's
+# schedule), which short timeouts keep to seconds. Pre-vote with
+# check-quorum, the canonical pairing, except where the storm turns
+# pre-vote off.
+SCEN_GROUPS = 1024
+SCEN_RTT_MS = 10
+SCEN_ELECTION, SCEN_HEARTBEAT = 50, 10
+SCEN_WAVE = 4  # proposals per group in a wave
+# the reference storm's shape (tests/test_prevote.py): 3 replicas, one
+# group, 10-tick elections, 2-tick heartbeats
+STORM_N, STORM_ELECTION, STORM_HEARTBEAT = 3, 10, 2
+
+
+def _scen_host(tag, nid, reg, workdir, groups, device, steps_per_sync=1):
+    from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.transport.loopback import loopback_factory
+
+    return NodeHost(NodeHostConfig(
+        deployment_id=12, rtt_millisecond=SCEN_RTT_MS, nodehost_dir=f"{workdir}/{tag}{nid}",
+        raft_address=f"{tag}{nid}:1", raft_rpc_factory=lambda a: loopback_factory(a, reg),
+        engine=EngineConfig(kind="vector", max_groups=3 * groups, max_peers=4, log_window=256,
+                            inbox_depth=4, max_entries_per_msg=64,
+                            steps_per_sync=steps_per_sync,
+                            share_scope=f"chip-{tag}-{id(reg)}", device=device)))
+
+
+def _scen_cfg(nid, cid, **kw):
+    from dragonboat_tpu_torch.config import Config
+
+    kw.setdefault("pre_vote", True)
+    return Config(cluster_id=cid, node_id=nid, election_rtt=SCEN_ELECTION,
+                  heartbeat_rtt=SCEN_HEARTBEAT, check_quorum=True, snapshot_entries=0, **kw)
+
+
+def _wait_for(pred, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        assert time.monotonic() < deadline, what()
+        time.sleep(0.05)
+
+
+def _leaders(nh):
+    return {c: lid for c, (lid, _t) in nh.engine.leader_snapshot().items() if lid}
+
+
+def _wave(hosts, leaders, groups, tag, timeout_s=60.0):
+    """SCEN_WAVE proposals per group through its leader, all in flight at
+    once; returns how many completed."""
+    pending = []
+    for c in range(1, groups + 1):
+        nh = hosts[leaders[c]]
+        pending.append(nh.propose_batch_async(
+            nh.get_noop_session(c), [f"{tag}{i}=v{c}".encode() for i in range(SCEN_WAVE)],
+            timeout_s))
+    done = 0
+    for h in pending:
+        h.wait(timeout_s + 5.0)
+        done += h.completed
+    return done
+
+
+def scen_witness(workdir, device, groups=SCEN_GROUPS, steps_per_sync=1):
+    """tests/test_witness_lanes.py at config 2's width: groups of 2 full
+    replicas (hosts 1 and 2) elect, each leader adds node 3 as a WITNESS
+    through the membership API and host 3 starts it with join, a wave of
+    proposals per group commits. Verdicts (the reference's): every witness
+    lane reports the WITNESS role, zero payload bytes and the leader, its
+    SM never applied a client update while the full replicas' did. At K=1
+    the two full replicas are then cut from each other (a co-hosted drop
+    hook) and a second wave must commit through leader and witness, the
+    witness counting in the quorum. At K>1 (steps_per_sync) the core
+    routes co-hosted traffic on the device, and the witness-bound traffic
+    must stay on the payload-stripping host path."""
+    from dragonboat_tpu_torch.ops.state import ROLE
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    tag = f"wit{steps_per_sync}-"
+    reg, kv = _Registry(), _kv_sm()
+    addrs = {n: f"{tag}{n}:1" for n in (1, 2, 3)}
+    hosts = {n: _scen_host(tag, n, reg, workdir, groups, device, steps_per_sync)
+             for n in (1, 2, 3)}
+    try:
+        full = {1: addrs[1], 2: addrs[2]}
+        for n in (1, 2):
+            hosts[n].start_clusters([(dict(full), False, lambda c, _n: kv(), _scen_cfg(n, c))
+                                     for c in range(1, groups + 1)])
+        _wait_for(lambda: len(_leaders(hosts[1])) == groups, 120,
+                  lambda: f"witness: {len(_leaders(hosts[1]))}/{groups} groups elected")
+        leaders = _leaders(hosts[1])
+        adds = [hosts[leaders[c]].request_add_witness(c, 3, addrs[3], timeout_s=60.0)
+                for c in range(1, groups + 1)]
+        added = sum(1 for rs in adds if rs.wait(65.0).completed)
+        assert added == groups, f"witness: {added}/{groups} witnesses added"
+        hosts[3].start_clusters([({}, True, lambda c, _n: kv(), _scen_cfg(3, c, is_witness=True))
+                                 for c in range(1, groups + 1)])
+        leaders = _leaders(hosts[1])
+        wave1 = _wave(hosts, leaders, groups, "a")
+
+        def followed():
+            st = hosts[3].engine.lane_stats()
+            return len(st) == groups and all(
+                s["leader_id"] == leaders[c] and s["term"] > 0 for c, s in st.items())
+
+        _wait_for(followed, 60, lambda: "witness: witness lanes never followed their leaders")
+        st = hosts[3].engine.lane_stats()
+        empty = kv().get_hash()
+        roles = {s["role"] for s in st.values()}
+        payload = sum(s["payload_bytes"] for s in st.values())
+        wit_applied = sum(1 for c in st if hosts[3].get_sm_hash(c) != empty)
+        full_applied = sum(1 for c in range(1, groups + 1)
+                           if hosts[leaders[c]].get_sm_hash(c) != empty)
+        verdicts = {"wave_committed": wave1 == SCEN_WAVE * groups,
+                    "witness_role": roles == {ROLE.WITNESS}, "witness_zero_payload": payload == 0,
+                    "witness_sm_untouched": wit_applied == 0,
+                    "full_replicas_applied": full_applied == groups}
+        out = {"groups": groups, "lanes": 3 * groups, "steps_per_sync": steps_per_sync,
+               "witnesses_added": added, "wave_completed": wave1,
+               "witness_payload_bytes": payload}
+        if steps_per_sync == 1:
+            core = hosts[1].engine.core
+            core.set_local_drop_hook(lambda m: {m.from_, m.to} == {1, 2})
+            try:
+                wave2 = _wave(hosts, leaders, groups, "b")
+            finally:
+                core.set_local_drop_hook(None)
+            verdicts["witness_in_commit_quorum"] = wave2 == SCEN_WAVE * groups
+            out["quorum_wave_completed"] = wave2
+        else:
+            out["msgs_routed_device"] = hosts[1].engine.core.step_stats()["msgs_routed_device"]
+        out["verdicts"] = verdicts
+        return out
+    finally:
+        for nh in hosts.values():
+            nh.stop()
+
+
+def reference_storm(prevote, device):
+    """tests/test_prevote.py's test_rejoin_storm_prevote_on_vs_off on the
+    port's LoopbackCluster (the step kernel on the card): elect, isolate a
+    follower for 8 election timeouts, heal, run 4 more; the leader, the
+    terms before and after, and each replica's elections started."""
+    from dragonboat_tpu_torch.ops.loopback import LoopbackCluster
+
+    kc = LoopbackCluster(n_replicas=STORM_N, n_groups=1, election=STORM_ELECTION,
+                         heartbeat=STORM_HEARTBEAT, prevote=prevote, device=device)
+    for _ in range(200):
+        kc.step()
+        kc.settle()
+        if kc.leader_of(0) is not None:
+            break
+    lead = kc.leader_of(0)
+    assert lead is not None, "reference storm: no leader"
+    base = kc.field("term", 0)
+    kc.isolated.add((lead + 1) % STORM_N)
+    for _ in range(8 * STORM_ELECTION):
+        kc.step()
+        kc.settle()
+    kc.isolated.clear()
+    for _ in range(4 * STORM_ELECTION):
+        kc.step()
+        kc.settle()
+    return {"leader": lead, "leader_after": kc.leader_of(0), "terms_before": base,
+            "terms_after": kc.field("term", 0),
+            "elections_started": [int(np.asarray(c)[0][0]) for c in kc.counters]}
+
+
+def scen_storm(workdir, device, prevote, groups=SCEN_GROUPS):
+    """The rejoin storm at config 2's width: 3 replicas a group, leaders on
+    hosts 1 and 2 (host 3 starts after they elect); a wave; host 3 stops
+    (one replica of every group), a wave it misses, host 3 restarts from
+    its directory partitioned, every one of its replicas campaigns in
+    isolation (pre-vote on: as a pre-candidate at its old term; off: a
+    real candidate at ever higher terms) for at least 8 election
+    timeouts, then heals and runs 4 more. Verdicts (the reference's):
+    pre-vote on, every group keeps its leader and no term moves; pre-vote
+    off, the terms move."""
+    from dragonboat_tpu_torch.ops.state import ROLE
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    tag = f"storm{int(prevote)}-"
+    reg, kv = _Registry(), _kv_sm()
+    addrs = {n: f"{tag}{n}:1" for n in (1, 2, 3)}
+    spec = lambda n: [(dict(addrs), False, lambda c, _n: kv(), _scen_cfg(n, c, pre_vote=prevote))
+                      for c in range(1, groups + 1)]
+    hosts = {n: _scen_host(tag, n, reg, workdir, groups, device) for n in (1, 2)}
+    try:
+        for n in (1, 2):
+            hosts[n].start_clusters(spec(n))
+        _wait_for(lambda: len(_leaders(hosts[1])) == groups, 120,
+                  lambda: f"storm: {len(_leaders(hosts[1]))}/{groups} groups elected")
+        leaders = _leaders(hosts[1])
+        hosts[3] = _scen_host(tag, 3, reg, workdir, groups, device)
+        hosts[3].start_clusters(spec(3))
+        wave1 = _wave(hosts, leaders, groups, "a")
+        terms = lambda n: {c: s["term"] for c, s in hosts[n].engine.lane_stats().items()}
+        base = {n: terms(n) for n in (1, 2)}
+        assert _leaders(hosts[1]) == leaders, "storm: leadership moved before the storm"
+        hosts.pop(3).stop()
+        wave2 = _wave(hosts, leaders, groups, "b")
+        hosts[3] = _scen_host(tag, 3, reg, workdir, groups, device)
+        hosts[3].set_partitioned(True)
+        hosts[3].start_clusters(spec(3))
+        t_iso = time.monotonic()
+        campaigned = set()
+        want = ROLE.PRE_CANDIDATE if prevote else ROLE.CANDIDATE
+
+        def all_campaigned():
+            for c, s in hosts[3].engine.lane_stats().items():
+                if s["role"] == want:
+                    campaigned.add(c)
+            return len(campaigned) == groups
+
+        _wait_for(all_campaigned, 120,
+                  lambda: f"storm: {len(campaigned)}/{groups} isolated replicas campaigned")
+        # 8 election timeouts of isolation in all, at the logical clock
+        # the replicas ran: at least the time the slowest took to campaign
+        time.sleep(max(8 * SCEN_ELECTION * SCEN_RTT_MS / 1000 - (time.monotonic() - t_iso), 0))
+        isolated_s = time.monotonic() - t_iso
+        hosts[3].set_partitioned(False)
+        time.sleep(4 * SCEN_ELECTION * SCEN_RTT_MS / 1000)
+
+        def settled():
+            ls = _leaders(hosts[1])
+            st = hosts[3].engine.lane_stats()
+            return len(ls) == groups and all(st[c]["leader_id"] == ls[c] for c in st)
+
+        _wait_for(settled, 120, lambda: "storm: the groups never settled after the heal")
+        after = _leaders(hosts[1])
+        now = {n: terms(n) for n in (1, 2)}
+        moved = sum(1 for c in range(1, groups + 1) if any(now[n][c] != base[n][c] for n in (1, 2)))
+        ctr = {n: hosts[n].engine.lane_counters() for n in hosts}
+        started = {n: sum(v["elections_started"] for v in ctr[n].values()) for n in ctr}
+        won = {n: sum(v["elections_won"] for v in ctr[n].values()) for n in ctr}
+        kept = sum(1 for c in range(1, groups + 1) if after[c] == leaders[c])
+        verdicts = {"waves_committed": wave1 == wave2 == SCEN_WAVE * groups,
+                    "every_isolated_replica_campaigned": len(campaigned) == groups}
+        if prevote:
+            verdicts.update(leaders_kept=kept == groups, terms_unmoved=moved == 0)
+        else:
+            verdicts.update(terms_moved=moved == groups)
+        return {"groups": groups, "lanes": 3 * groups, "prevote": prevote,
+                "waves_completed": [wave1, wave2], "isolated_s": round(isolated_s, 2),
+                "groups_leader_kept": kept, "groups_terms_moved": moved,
+                "elections_started": started, "elections_won": won,
+                "verdicts": verdicts}
+    finally:
+        for nh in hosts.values():
+            nh.stop()
+
+
+def _leader_of(hosts, cid):
+    for n, nh in hosts.items():
+        try:
+            lid, ok = nh.get_leader_id(cid)
+        except Exception:
+            continue  # a crashed or stopped node
+        if ok and lid == n:
+            return n
+    return None
+
+
+def scen_lease(workdir, device):
+    """tests/test_lease.py at its shapes: the kernel's lease grant and local
+    read (test_kernel_lease_grant_and_local_read, a 3-replica
+    LoopbackCluster, the step kernel on the card), then the probe API and
+    its fallback through three vector hosts on one core
+    (test_lease_probe_api_and_fallback): the leader earns its lease from
+    quorum heartbeat acks and serves `lease_read`; a follower's probe
+    raises the typed, retriable ErrLeaseExpired while its `sync_read`
+    falls back to ReadIndex and reads the value."""
+    from dragonboat_tpu_torch.config import Config
+    from dragonboat_tpu_torch.ops.loopback import LoopbackCluster
+    from dragonboat_tpu_torch.requests import ErrLeaseExpired, ErrSystemBusy
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    kc = LoopbackCluster(n_replicas=3, n_groups=1, election=10, heartbeat=2, lease_read=True,
+                         lease_margin=2, device=device)
+    lead = None
+    for _ in range(300):
+        kc.step()
+        kc.settle()
+        lead = kc.leader_of(0)
+        if lead is not None:
+            break
+    assert lead is not None, "lease: no kernel leader"
+    kc.propose(lead, 0, 1)
+    kc.settle()
+    lease_ok = lambda: bool(kc.last_outputs[lead].lease_ok[0].cpu())
+    for _ in range(8):
+        kc.step()
+        kc.settle()
+        if lease_ok():
+            break
+    granted = lease_ok()
+    st = {f: int(getattr(kc.states[lead], f)[0].cpu()) for f in
+          ("lease_until", "tick_count", "lease_margin", "hb_round_tick")}
+    kc.ready_reads[lead].clear()
+    kc.read_index(lead, 0, ctx=42)
+    kc.step(tick=False)
+    served = int(kc.last_outputs[lead].lease_served[0].cpu())
+    ready = [ctx for (_g, ctx, _i, _c2) in kc.ready_reads[lead]]
+    verdicts = {
+        "kernel_lease_granted": granted,
+        "kernel_lease_bounded": st["tick_count"] < st["lease_until"]
+        <= st["hb_round_tick"] + 10 - st["lease_margin"],
+        "kernel_local_read_same_step": served == 1 and ready == [42]}
+
+    reg, kv = _Registry(), _kv_sm()
+    members = {n: f"lease{n}:1" for n in (1, 2, 3)}
+    hosts = {n: _fault_host(n, members, reg, workdir, f"chip-lease-{id(reg)}", device)
+             for n in members}
+    try:
+        for n, nh in hosts.items():
+            nh.start_cluster(dict(members), False, lambda c, _n: kv(),
+                             Config(node_id=n, cluster_id=1, election_rtt=20, heartbeat_rtt=4,
+                                    lease_read=True))
+        _wait_for(lambda: _leader_of(hosts, 1) is not None, 30, lambda: "lease: no leader")
+        ld = _leader_of(hosts, 1)
+        hosts[ld].sync_propose(hosts[ld].get_noop_session(1), b"k=v", timeout_s=10.0)
+        _wait_for(lambda: hosts[ld].engine.lease_valid(1), 10,
+                  lambda: "lease: the leader never earned its lease")
+        verdicts["probe_served_on_leader"] = hosts[ld].lease_read(1, "k", timeout_s=10.0) == "v"
+        follower = next(n for n in hosts if n != ld)
+        try:
+            hosts[follower].lease_read(1, "k")
+            verdicts["probe_refused_on_follower"] = False
+        except ErrLeaseExpired as e:
+            verdicts["probe_refused_on_follower"] = (isinstance(e, ErrSystemBusy)
+                                                     and e.retry_after_s > 0)
+        verdicts["follower_read_falls_back"] = (
+            hosts[follower].sync_read(1, "k", timeout_s=10.0) == "v")
+        return {"kernel": st, "lease_stats": hosts[ld].engine.lease_stats(),
+                "verdicts": verdicts}
+    finally:
+        for nh in hosts.values():
+            nh.stop()
+
+
+def scen_install(workdir, device):
+    """tests/test_streamed_install.py at its shape and constants (5 ms
+    ticks, 8 KiB chunks, snapshots every 20 entries): a member crashed
+    behind a compacted log rejoins through a streamed install throttled to
+    150 kB/s, its whole host crashes mid-stream, and the restarted host's
+    install must RESUME from the recorded offset (skipped chunks > 0) and
+    converge (test_install_resumes_after_host_crash_mid_stream); then the
+    abort: a stream with a gap reports `out_of_order` through the abort
+    hook (test_chunks_abort_notifies_nodehost) and a replica whose install
+    aborted fails reads fast with the typed ErrSnapshotStreamAborted and
+    its retry hint until cleared (test_err_snapshot_stream_aborted_fails_
+    reads_fast)."""
+    import os
+
+    from dragonboat_tpu_torch.config import Config
+    from dragonboat_tpu_torch.settings import soft
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    cid, reg, kv = 5, _Registry(), _kv_sm()
+    members = {n: f"si{n}:1" for n in (1, 2, 3)}
+    cfg = lambda n: Config(cluster_id=cid, node_id=n, election_rtt=60, heartbeat_rtt=10,
+                           snapshot_entries=20, compaction_overhead=5, pre_vote=True,
+                           check_quorum=True)
+    mk = lambda n, rate=0: _fault_host(n, members, reg, workdir, None, device, recv_rate=rate)
+    chunk = soft.sent_snapshot_chunk_size
+    soft.sent_snapshot_chunk_size = 8 * 1024
+    hosts = {n: mk(n, 150_000 if n == 3 else 0) for n in (1, 2, 3)}
+    try:
+        for n in (1, 2, 3):
+            hosts[n].start_cluster(members, False, lambda c, _n: kv(), cfg(n))
+        _wait_for(lambda: _leader_of(hosts, cid) is not None, 30, lambda: "install: no leader")
+        leader = _leader_of(hosts, cid)
+        if leader == 3:
+            hosts[3].request_leader_transfer(cid, 1)
+            _wait_for(lambda: _leader_of(hosts, cid) in (1, 2), 10,
+                      lambda: "install: leadership never left host 3")
+            leader = _leader_of(hosts, cid)
+        hosts[3].crash_cluster(cid)
+        s = hosts[leader].get_noop_session(cid)
+        for i in range(60):
+            hosts[leader].sync_propose(s, f"big{i}={'b' * 4096}".encode(), timeout_s=5.0)
+        _wait_for(lambda: len({hosts[n].get_applied_index(cid) for n in (1, 2)}) == 1, 20,
+                  lambda: "install: the live members never met")
+        for n in (1, 2):
+            hosts[n].sync_request_snapshot(cid, timeout_s=10.0)
+        hosts[3].restart_cluster(cid)
+        root = hosts[3].snapshot_dir_root()
+        _wait_for(lambda: any("stream-progress.json" in f for _r, _d, f in os.walk(root)), 30,
+                  lambda: "install: the stream never started")
+        hosts[3].crash()
+        hosts[3] = mk(3)
+        hosts[3].start_cluster(members, False, lambda c, _n: kv(), cfg(3))
+        ch = hosts[3]._chunks
+        _wait_for(lambda: ch.stats()["resumed_streams"] >= 1
+                  and ch.stats()["completed_streams"] >= 1, 90,
+                  lambda: f"install: no resumed stream completed {ch.stats()}")
+        want = hosts[leader].get_sm_hash(cid)
+        _wait_for(lambda: hosts[3].get_sm_hash(cid) == want, 60,
+                  lambda: "install: the rejoiner diverged")
+        stats = ch.stats()
+        verdicts = {"resumed": stats["resumed_streams"] >= 1,
+                    "skipped_durable_chunks": stats["skipped_chunks"] > 0,
+                    "converged": hosts[3].get_sm_hash(cid) == want}
+    finally:
+        soft.sent_snapshot_chunk_size = chunk
+        for nh in hosts.values():
+            try:
+                nh.stop()
+            except Exception:
+                pass  # the crashed host's stop may find nothing to stop
+    verdicts.update(_install_abort(f"{workdir}/abort", device))
+    return {"chunk_stats": stats, "verdicts": verdicts}
+
+
+def _install_abort(workdir, device):
+    """The abort half of scen_install: a chunk gap, then the typed error."""
+    import os
+
+    from dragonboat_tpu_torch.config import Config
+    from dragonboat_tpu_torch.requests import ErrSnapshotStreamAborted
+    from dragonboat_tpu_torch.rsm.snapshotio import SnapshotHeader, SnapshotWriter
+    from dragonboat_tpu_torch.transport.chunks import Chunks
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+    from dragonboat_tpu_torch.transport.snapshotstream import load_chunk_data, split_snapshot_message
+    from dragonboat_tpu_torch.types import Membership, Message, MessageType, Snapshot
+
+    os.makedirs(workdir)
+    path = f"{workdir}/abort.gbsnap"
+    mem = Membership(addresses={1: "a:1", 2: "a:2"})
+    with open(path, "wb") as f:
+        with SnapshotWriter(f, SnapshotHeader(index=50, term=3, membership=mem), session=b"") as w:
+            w.write(b"x" * (64 * 1024))
+    ss = Snapshot(filepath=path, file_size=os.path.getsize(path), index=50, term=3,
+                  membership=mem, cluster_id=5)
+    m = Message(type=MessageType.INSTALL_SNAPSHOT, cluster_id=5, to=2, from_=1, snapshot=ss)
+    chunks = [load_chunk_data(c, chunk_size=4096)
+              for c in split_snapshot_message(m, chunk_size=4096)]
+
+    class Sink:
+        def __init__(self):
+            self.aborts = []
+
+        def snapshot_dir_root(self):
+            return f"{workdir}/abort-recv"
+
+        def handle_message_batch(self, batch):
+            pass
+
+        def handle_snapshot(self, *a):
+            pass
+
+        def _on_snapshot_stream_aborted(self, cluster_id, node_id, from_, reason):
+            self.aborts.append((cluster_id, reason))
+
+    sink = Sink()
+    ch = Chunks(sink)
+    first = ch.add_chunk(chunks[0])
+    gap = ch.add_chunk(chunks[3])
+    verdicts = {"gap_aborts_stream": first and not gap
+                and ch.stats()["aborted_streams"] == 1 and sink.aborts == [(5, "out_of_order")]}
+    nh = _fault_host(1, {1: "sa1:1"}, _Registry(), workdir, None, device)
+    try:
+        nh.start_cluster({1: "sa1:1"}, False, lambda c, _n: _kv_sm()(),
+                         Config(cluster_id=5, node_id=1, election_rtt=20, heartbeat_rtt=4))
+        _wait_for(lambda: nh.get_leader_id(5)[1], 20, lambda: "abort: no leader")
+        node = nh._get_node(5)
+        node.notify_install_aborted(retry_after_s=1.5)
+        try:
+            nh.read_index(5, timeout_s=2.0)
+            verdicts["aborted_install_fails_reads_fast"] = False
+        except ErrSnapshotStreamAborted as e:
+            verdicts["aborted_install_fails_reads_fast"] = e.retry_after_s == 1.5
+        node.clear_install_aborted()
+        verdicts["reads_flow_after_clear"] = nh.read_index(5, timeout_s=5.0).wait(5.0).completed
+    finally:
+        nh.stop()
+    return verdicts
+
+
+def scen_crash_save(workdir, device):
+    """tests/test_crash_safety.py's crash mid save_snapshot at its shape (3
+    vector hosts, 5 ms ticks): a follower's user snapshot save parks on a
+    gate, the node crashes mid-save, writes go on, it restarts with the
+    save still parked, the save is released, more writes; verdicts (the
+    reference's): every replica reaches one applied index and one SM
+    hash, the victim's most recent snapshot is loadable or absent, and the
+    client history is linearizable."""
+    import threading
+
+    from dragonboat_tpu_torch.config import Config
+    from dragonboat_tpu_torch.lincheck import HistoryRecorder, check_kv_history
+    from dragonboat_tpu_torch.requests import RequestError
+    from dragonboat_tpu_torch.transport.loopback import _Registry
+
+    gate, saving = threading.Event(), threading.Event()
+    base = _kv_sm()
+
+    class SlowSnap(base):
+        def save_snapshot(self, w, files, done):
+            saving.set()
+            gate.wait(timeout=10.0)
+            super().save_snapshot(w, files, done)
+
+    reg, rec = _Registry(), HistoryRecorder()
+    members = {n: f"cs{n}:1" for n in (1, 2, 3)}
+    hosts = {}
+    try:
+        for n in (1, 2, 3):
+            hosts[n] = _fault_host(n, members, reg, workdir, None, device)
+            hosts[n].start_cluster(members, False, lambda c, _n: SlowSnap(),
+                                   Config(cluster_id=1, node_id=n, election_rtt=20,
+                                          heartbeat_rtt=4))
+
+        def put(i):
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                nid = _leader_of(hosts, 1)
+                if nid is not None:
+                    op = rec.invoke(0, ("put", "k", f"v{i}"))
+                    try:
+                        hosts[nid].sync_propose(hosts[nid].get_noop_session(1),
+                                                f"k=v{i}".encode(), 2.0)
+                        rec.complete(op, None)
+                        return
+                    except RequestError:
+                        rec.unknown(op)
+                time.sleep(0.05)
+            raise AssertionError(f"crash-save: put {i} never committed")
+
+        for i in range(5):
+            put(i)
+        leader = _leader_of(hosts, 1)
+        victim = next(n for n in (1, 2, 3) if n != leader)
+        hosts[victim].request_snapshot(1, timeout_s=10.0)
+        assert saving.wait(timeout=20.0), "crash-save: the save never started"
+        hosts[victim].crash_cluster(1)
+        for i in range(5, 10):
+            put(i)
+        hosts[victim].restart_cluster(1)
+        gate.set()
+        for i in range(10, 13):
+            put(i)
+        _wait_for(lambda: len({hosts[n].get_applied_index(1) for n in hosts}) == 1, 45,
+                  lambda: "crash-save: the rejoiner never converged")
+        ss = hosts[victim]._get_node(1).snapshotter.get_most_recent_snapshot()
+        verdicts = {
+            "converged": len({hosts[n].get_applied_index(1) for n in hosts}) == 1,
+            "one_hash": len({hosts[n].get_sm_hash(1) for n in hosts}) == 1,
+            "snapshot_loadable": ss is None or ss.is_empty() or ss.index >= 0,
+            "linearizable": check_kv_history(rec.history(), max_states=2_000_000)}
+        return {"victim": victim, "ops": len(rec.history()), "verdicts": verdicts}
+    finally:
+        gate.set()
+        for nh in hosts.values():
+            nh.stop()
+
+
+SCENARIOS = (
+    ("witness_k1", lambda d, dev, g: scen_witness(d, dev, g, steps_per_sync=1)),
+    ("witness_k8", lambda d, dev, g: scen_witness(d, dev, g, steps_per_sync=8)),
+    ("storm_prevote_on", lambda d, dev, g: scen_storm(d, dev, True, g)),
+    ("storm_prevote_off", lambda d, dev, g: scen_storm(d, dev, False, g)),
+    ("lease", lambda d, dev, g: scen_lease(d, dev)),
+    ("install", lambda d, dev, g: scen_install(d, dev)),
+    ("crash_save", lambda d, dev, g: scen_crash_save(d, dev)),
+)
+
+
+def phase_scenarios(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
+    """Phase 11: the reference's engine-level scenarios through the port's
+    NodeHost on `device` (SCENARIOS). Each runs with the launch counts
+    zeroed just before it and read just after, its K=1 engine steps
+    recorded (StepRecorder) and its K=8 super-steps (SuperstepRecorder);
+    on the card it must have launched the kernels and never the plain
+    step, and the step kernel (and at K=8 the router) is then held against
+    its plain version on the recorded states: witnesses, pre-candidates,
+    live leases and installs in flight. Prints one line per scenario and
+    fails on any false verdict or mismatched field."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    for i, (name, fn) in enumerate(SCENARIOS):
+        for k in cuda.LAUNCHES:
+            cuda.LAUNCHES[k] = 0
+        K.REFERENCE_CALLS["step_batch"] = 0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"dbtorch-{name}-") as d, \
+                StepRecorder(K) as rec, SuperstepRecorder(K) as srec:
+            r = fn(d, device, groups)
+        r["seconds"] = round(time.perf_counter() - t0, 2)
+        r["launches"] = dict(cuda.LAUNCHES)
+        r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
+        compared = []
+        if device == "cuda":
+            assert r["plain_step_calls"] == 0, f"{name}: the engine ran the plain step on the card"
+            assert r["launches"]["step_batch"] > 0, f"{name}: the step kernel never launched"
+            if rec.kept:
+                r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, 1100 + i)
+                compared.append(r["kernel_vs_plain"])
+            if srec.kept:
+                assert r["launches"]["route_scatter"] > 0, f"{name}: the router never launched"
+                r["superstep_vs_plain"] = compare_superstep_recorded(K, srec)
+                compared.append(r["superstep_vs_plain"])
+            assert compared, f"{name}: no engine step was recorded"
+        log(f"scenario {name}: " + json.dumps({
+            "scenario": name, "seconds": r["seconds"], "verdicts": r["verdicts"],
+            "compared_cases": sum(c["cases"] for c in compared),
+            "mismatched_fields": sorted({f for c in compared for f in c["mismatched_fields"]}),
+            "card": card, **{k: v for k, v in r.items() if k not in (
+                "seconds", "verdicts", "kernel_vs_plain", "superstep_vs_plain")}},
+            default=str))
+        bad = [v for v, ok in r["verdicts"].items() if not ok]
+        assert not bad, f"scenario {name}: verdicts failed {bad}"
+        out[name] = r
+    ref = {on: reference_storm(on, device) for on in (True, False)}
+    out["reference_storm"] = ref
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    log("scenario storm elections: " + json.dumps({
+        "reference_test": {f"prevote_{'on' if k else 'off'}": v for k, v in ref.items()},
+        "config2_width": {n: {"elections_started": out[n]["elections_started"],
+                              "elections_won": out[n]["elections_won"],
+                              "groups_terms_moved": out[n]["groups_terms_moved"]}
+                          for n in ("storm_prevote_on", "storm_prevote_off") if n in out},
+        "card": card}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2623,6 +3268,13 @@ def main() -> int:
     log(f"mesh: {MESH_SHARDS} shards on {mesh['distinct_cards']} distinct card(s), phase "
         f"{mesh['seconds']} s [{card}]")
 
+    # ---- phase 11: the reference's engine-level scenarios ----
+    scen = phase_scenarios(cuda, K, card)
+    scen_names = [n for n, _ in SCENARIOS]
+    log(f"scenarios: {len(scen_names)} scenarios ("
+        + ", ".join(f"{n} {scen[n]['seconds']} s" for n in scen_names)
+        + f"), phase {scen['seconds']} s [{card}]")
+
     # the step kernel against its plain version at the shapes the engine
     # ran in phases 5-9 (each already failed on a mismatch)
     shapes = {f"config{c}": r["kernel_vs_plain"] for c, (r, _) in engines.items()
@@ -2634,6 +3286,10 @@ def main() -> int:
                    if "kernel_vs_plain" in lh[n]})
     shapes["native"] = nat["main"]["kernel_vs_plain"]
     shapes["mesh_config6"] = mesh_runs["config6"]["superstep_vs_plain"]
+    for n in scen_names:
+        for which in ("kernel_vs_plain", "superstep_vs_plain"):
+            if which in scen[n]:
+                shapes[f"scenario_{n}" + ("_superstep" if which[0] == "s" else "")] = scen[n][which]
     cases += sum(v["cases"] for v in shapes.values())
     err = max([err] + [v["max_abs_err"] for v in shapes.values()])
     # engine steps of the whole run (config 8: both of its runs)
@@ -2702,6 +3358,7 @@ def main() -> int:
                    "diskkv_restart": nat["diskkv_restart"]["launches"]["step_batch"]},
         "longhaul_superstep": lh["k8"]["superstep_vs_plain"],
         "mesh": mesh_launches("step_batch"),
+        "scenarios": {n: scen[n]["launches"]["step_batch"] for n in scen_names},
         "engine_shapes": shapes,
         "ptxas": ptxas["step_batch_kernel"],
         "frame_bytes": frames,
@@ -2723,6 +3380,7 @@ def main() -> int:
             "engine": per_step(name),
             "longhaul": longhaul_launches(name),
             "mesh": mesh_launches(name),
+            "scenarios": {n: scen[n]["launches"][name] for n in scen_names},
             "ptxas": ptxas[name + "_kernel"],
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "cases", "bad")},
@@ -2760,6 +3418,11 @@ def main() -> int:
     kernels["native"] = {k: v for k, v in nat.items() if k != "main"}
     kernels["native"]["main"] = {k: v for k, v in nat["main"].items()
                                  if k not in ("launches", "kernel_vs_plain")}
+    kernels["scenarios"] = {
+        n: {k: v for k, v in scen[n].items()
+            if k not in ("launches", "kernel_vs_plain", "superstep_vs_plain")}
+        for n in scen_names}
+    kernels["scenarios"]["reference_storm"] = scen["reference_storm"]
     log(f"card: {card_line()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -18,8 +18,10 @@ op for op, in the same handler order, and emulates the JAX semantics that
 torch does not share: out-of-range `take_along_axis` (INT_MIN fill), out of
 range `one_hot` (an all-False row), u32 wraparound with logical shifts, and
 shifts by 32 or more (0). The role-change helpers return
-early when their lane mask selects no lane, which leaves the result as it
-is and keeps the CPU version fast. `step_batch` launches the hand-written
+early when their lane mask selects no lane, and a handler section of
+`_handle_message` runs only when its message type acts on some lane whose
+role handles it: either leaves the result as it is and keeps the CPU
+version fast. `step_batch` launches the hand-written
 CUDA kernel
 (`csrc/step_batch.cu`, via `ops.cuda`) for tensors on the card and runs the
 plain version for tensors on the CPU.
@@ -325,17 +327,41 @@ def _is_leader_msg(t):
     )
 
 
+def _acting_kinds(mtype, act) -> int:
+    """The message types that act on some lane: bit t + 1 is set for type t
+    (-1 <= t < 31). One host read per inbox slot, as the gates' `.any()`."""
+    ar = torch.arange(32, dtype=torch.int64, device=mtype.device)
+    hit = ((mtype.long() + 1)[:, None] == ar[None, :]) & act[:, None]
+    return int((hit.any(dim=0).long() << ar).sum())
+
+
+def _has(kinds: int, kind: int) -> bool:
+    return bool(kinds >> (kind + 1) & 1)
+
+
+def _some(mask) -> bool:
+    """A handler section's gate: its lane mask exists and selects a lane.
+    A section whose mask selects no lane is skipped, which is what its
+    masked updates give with an all-False mask: every field as it was."""
+    return mask is not None and bool(mask.any())
+
+
 def _handle_message(s: RaftTensors, m, out, cfg: KernelConfig):
     """Apply one message per group (the k-th inbox slot): the term preamble,
-    then the handler table as masked updates."""
+    then the handler table as masked updates. Each handler section runs only
+    when its message type reaches some lane whose role handles it (`kinds`,
+    `_some`); the sections keep the JAX code's order and masks."""
     P = s.member.shape[1]
     W = s.log_term.shape[1]
+    R = s.ri_ctx.shape[1]
     E = cfg.max_entries_per_msg
     dev = s.term.device
     mtype = m["mtype"]
     present = mtype != MSG.NONE
     from_slot = m["from_slot"]
     mterm = m["term"]
+    li = m["log_index"]
+    nent = m["n_entries"]
     zeros = torch.zeros_like(mterm)
     present_any = bool(present.any())
     if not present_any:
@@ -368,12 +394,15 @@ def _handle_message(s: RaftTensors, m, out, cfg: KernelConfig):
         & (s.election_tick < s.election_timeout)
     )
     step_down = higher & ~drop_rv & ~is_pv & ~(is_pvr & ~m["reject"])
-    new_leader = _where(_is_leader_msg(mtype), from_slot + 1, 0)
-    s = _become_follower(s, step_down, mterm, torch.where(step_down, new_leader, s.leader))
-    noop_resp = lower & _is_leader_msg(mtype) & s.check_quorum
+    leader_msg = _is_leader_msg(mtype)
+    if bool(step_down.any()):
+        new_leader = _where(leader_msg, from_slot + 1, 0)
+        s = _become_follower(s, step_down, mterm, torch.where(step_down, new_leader, s.leader))
+    noop_resp = lower & leader_msg & s.check_quorum
     pv_stale = lower & is_pv
     dropped = lower | drop_rv
     act = present & ~dropped
+    kinds = _acting_kinds(mtype, act)
 
     is_leader = s.role == ROLE.LEADER
     is_cand = s.role == ROLE.CANDIDATE
@@ -382,358 +411,370 @@ def _handle_message(s: RaftTensors, m, out, cfg: KernelConfig):
     is_wit = s.role == ROLE.WITNESS
     is_fol = s.role == ROLE.FOLLOWER
 
-    resp_type = _where(noop_resp, MSG.NOOP, torch.full_like(mterm, MSG.NONE))
-    resp_type = _where(pv_stale, MSG.REQUEST_PREVOTE_RESP, resp_type)
+    resp_type = _where(pv_stale, MSG.REQUEST_PREVOTE_RESP,
+                       _where(noop_resp, MSG.NOOP, torch.full_like(mterm, MSG.NONE)))
     resp_to = from_slot
     resp_log_index = zeros
     resp_reject = pv_stale
     resp_hint = zeros
     resp_hint2 = zeros
     pv_resp_term = zeros
-
-    selfm = _self_mask(s)
-    from_onehot = _one_hot(from_slot, P)
-    known_from = (s.member & from_onehot).any(dim=1)
-
-    # ---- RequestVote (any state) ------------------------------------------
-    rv = act & (mtype == MSG.REQUEST_VOTE) & (
-        is_fol | is_cand | is_precand | is_leader | is_wit
-    )
-    can_grant = (s.vote == 0) | (s.vote == from_slot + 1)
-    last_term = _term_at(s, s.last_index)
-    utd = (m["log_term"] > last_term) | (
-        (m["log_term"] == last_term) & (m["log_index"] >= s.last_index)
-    )
-    grant = rv & can_grant & utd
-    s = s._replace(
-        vote=torch.where(grant, from_slot + 1, s.vote),
-        election_tick=_where(grant, 0, s.election_tick),
-    )
-    resp_type = _where(rv, MSG.REQUEST_VOTE_RESP, resp_type)
-    resp_reject = torch.where(rv, ~grant, resp_reject)
-
-    # ---- RequestPreVote ------------------------------------------------------
-    pv = act & is_pv & (is_fol | is_cand | is_precand | is_leader | is_wit)
-    grant_pv = pv & (mterm > s.term) & utd
-    resp_type = _where(pv, MSG.REQUEST_PREVOTE_RESP, resp_type)
-    resp_reject = torch.where(pv, ~grant_pv, resp_reject)
-    pv_resp_term = torch.where(grant_pv, mterm, pv_resp_term)
-
-    # ---- RequestVoteResp (candidate) --------------------------------------
-    rvr = act & (mtype == MSG.REQUEST_VOTE_RESP) & is_cand & known_from
-    first_resp = rvr & ~(s.vresp & from_onehot).any(dim=1)
-    fr_first = first_resp[:, None] & from_onehot
-    s = s._replace(
-        vresp=s.vresp | fr_first,
-        vgrant=torch.where(fr_first, ~m["reject"][:, None], s.vgrant),
-    )
-    granted = (s.vgrant & s.voting).sum(dim=1).to(i32)
-    rejected = (s.vresp & ~s.vgrant & s.voting).sum(dim=1).to(i32)
-    q = _quorum(s)
-    win = rvr & (granted >= q)
-    lose = rvr & ~win & (rejected >= q)
-    noop_at = _where(win, s.last_index + 1, 0)
-    s = _become_leader(s, win)
-    out["ctr_elections_won"] = out["ctr_elections_won"] + win.to(i32)
-    out["noop_appended"] = torch.maximum(out["noop_appended"], noop_at)
-    out["noop_term"] = torch.maximum(out["noop_term"], _where(win, s.term, 0))
-    s = _become_follower(s, lose, s.term, torch.zeros_like(s.leader))
-
-    # ---- RequestPreVoteResp (pre-candidate) -------------------------------
-    pvr = act & is_pvr & is_precand & known_from
-    first_pvr = pvr & ~(s.vresp & from_onehot).any(dim=1)
-    fp = first_pvr[:, None] & from_onehot
-    s = s._replace(
-        vresp=s.vresp | fp,
-        vgrant=torch.where(fp, ~m["reject"][:, None], s.vgrant),
-    )
-    granted_pv = (s.vgrant & s.voting).sum(dim=1).to(i32)
-    rejected_pv = (s.vresp & ~s.vgrant & s.voting).sum(dim=1).to(i32)
-    q = _quorum(s)
-    win_pv = pvr & (granted_pv >= q)
-    lose_pv = pvr & ~win_pv & (rejected_pv >= q)
-    s, out = _campaign(s, win_pv, out, torch.zeros_like(win_pv), force_real=win_pv)
-    s = _become_follower(s, lose_pv, s.term, torch.zeros_like(s.leader))
-
-    # ---- Election / TimeoutNow --------------------------------------------
-    ele = act & (mtype == MSG.ELECTION)
-    tno = act & (mtype == MSG.TIMEOUT_NOW) & is_fol
-    s, out = _campaign(s, ele | tno, out, transfer_hint=tno)
-
     prop_base = zeros
     rep_base = zeros
 
-    # ---- Replicate (non-leader) -------------------------------------------
-    rep = act & (mtype == MSG.REPLICATE) & (is_fol | is_obs | is_wit | is_cand | is_precand)
-    rep_demote = rep & (is_cand | is_precand)
-    s = _become_follower(
-        s, rep_demote, s.term, torch.where(rep_demote, from_slot + 1, s.leader)
-    )
-    s = s._replace(
-        leader=torch.where(rep, from_slot + 1, s.leader),
-        election_tick=_where(rep, 0, s.election_tick),
-    )
-    prev = m["log_index"]
-    nent = m["n_entries"]
-    stale = rep & (prev < s.committed)
-    match_prev = _term_at(s, prev) == m["log_term"]
-    in_window = (prev >= s.first_index - 1) & (prev <= s.last_index)
-    ok = rep & ~stale & match_prev & in_window
-    rej = rep & ~stale & ~ok
-    out["ctr_replicate_rejects"] = out["ctr_replicate_rejects"] + rej.to(i32)
-    if E > 0:
-        ar_e = torch.arange(E, dtype=i32, device=dev)[None, :]
-        e_idx = prev[:, None] + 1 + ar_e
-        e_valid = ar_e < nent[:, None]
-        have = e_idx <= s.last_index[:, None]
-        exist_term = torch.gather(s.log_term, 1, (e_idx % W).long())
-        conflict = e_valid & (~have | (exist_term != m["entry_terms"]))
-        first_conf = _where(conflict, e_idx, INT_MAX).min(dim=1).values
-        any_conf = conflict.any(dim=1)
-        do_append = ok & any_conf
-        w_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
-        lo = _where(do_append, first_conf, 1)
-        hi = prev + nent
-        i_w = lo[:, None] + (w_idx - lo[:, None]) % W
-        written = do_append[:, None] & (i_w <= hi[:, None])
-        e_pos = torch.clamp(i_w - (prev[:, None] + 1), 0, E - 1).long()
-        terms_w = torch.gather(m["entry_terms"], 1, e_pos)
-        cc_w = torch.gather(m["entry_cc"], 1, e_pos)
-        s = s._replace(
-            log_term=torch.where(written, terms_w, s.log_term),
-            log_is_cc=torch.where(written, cc_w, s.log_is_cc),
-            last_index=torch.where(do_append, prev + nent, s.last_index),
-            unsaved_from=torch.where(
-                do_append, torch.minimum(s.unsaved_from, first_conf), s.unsaved_from
-            ),
+    selfm = _self_mask(s)
+    fr = _one_hot(from_slot, P)
+    known_from = (s.member & fr).any(dim=1)
+    from_val = lambda a: torch.where(fr, a, torch.zeros_like(a)).sum(dim=1).to(i32)
+
+    def lanes(kind, roles):
+        """The lanes whose slot holds an acting `kind` message, masked by
+        `roles()`; None when the type reaches no lane."""
+        return act & (mtype == kind) & roles() if _has(kinds, kind) else None
+
+    votes = lambda: is_fol | is_cand | is_precand | is_leader | is_wit
+    leads = lambda: s.role == ROLE.LEADER
+
+    # ---- RequestVote (any state) ------------------------------------------
+    rv = lanes(MSG.REQUEST_VOTE, votes)
+    pv = lanes(MSG.REQUEST_PREVOTE, votes)
+    rv_some, pv_some = _some(rv), _some(pv)
+    if rv_some or pv_some:
+        last_term = _term_at(s, s.last_index)
+        utd = (m["log_term"] > last_term) | (
+            (m["log_term"] == last_term) & (li >= s.last_index)
         )
-    ack_to = prev + nent
-    new_commit = torch.clamp(torch.minimum(ack_to, m["commit"]), s.committed, s.last_index)
-    s = s._replace(committed=torch.where(ok, new_commit, s.committed))
-    rep_base = torch.where(ok, prev + 1, rep_base)
-    resp_type = _where(rep, MSG.REPLICATE_RESP, resp_type)
-    resp_log_index = torch.where(
-        stale, s.committed,
-        torch.where(ok, ack_to, torch.where(rej, prev, resp_log_index)),
-    )
-    resp_reject = resp_reject | rej
-    resp_hint = torch.where(rej, s.last_index, resp_hint)
+    if rv_some:
+        can_grant = (s.vote == 0) | (s.vote == from_slot + 1)
+        grant = rv & can_grant & utd
+        s = s._replace(
+            vote=torch.where(grant, from_slot + 1, s.vote),
+            election_tick=_where(grant, 0, s.election_tick),
+        )
+        resp_type = _where(rv, MSG.REQUEST_VOTE_RESP, resp_type)
+        resp_reject = torch.where(rv, ~grant, resp_reject)
+
+    # ---- RequestPreVote ------------------------------------------------------
+    if pv_some:
+        grant_pv = pv & (mterm > s.term) & utd
+        resp_type = _where(pv, MSG.REQUEST_PREVOTE_RESP, resp_type)
+        resp_reject = torch.where(pv, ~grant_pv, resp_reject)
+        pv_resp_term = torch.where(grant_pv, mterm, pv_resp_term)
+
+    # ---- RequestVoteResp (candidate) --------------------------------------
+    rvr = lanes(MSG.REQUEST_VOTE_RESP, lambda: is_cand & known_from)
+    if _some(rvr):
+        first_resp = rvr & ~(s.vresp & fr).any(dim=1)
+        fr_first = first_resp[:, None] & fr
+        s = s._replace(
+            vresp=s.vresp | fr_first,
+            vgrant=torch.where(fr_first, ~m["reject"][:, None], s.vgrant),
+        )
+        granted = (s.vgrant & s.voting).sum(dim=1).to(i32)
+        rejected = (s.vresp & ~s.vgrant & s.voting).sum(dim=1).to(i32)
+        q = _quorum(s)
+        win = rvr & (granted >= q)
+        lose = rvr & ~win & (rejected >= q)
+        noop_at = _where(win, s.last_index + 1, 0)
+        s = _become_leader(s, win)
+        out["ctr_elections_won"] = out["ctr_elections_won"] + win.to(i32)
+        out["noop_appended"] = torch.maximum(out["noop_appended"], noop_at)
+        out["noop_term"] = torch.maximum(out["noop_term"], _where(win, s.term, 0))
+        s = _become_follower(s, lose, s.term, torch.zeros_like(s.leader))
+
+    # ---- RequestPreVoteResp (pre-candidate) -------------------------------
+    pvr = lanes(MSG.REQUEST_PREVOTE_RESP, lambda: is_precand & known_from)
+    if _some(pvr):
+        first_pvr = pvr & ~(s.vresp & fr).any(dim=1)
+        fp = first_pvr[:, None] & fr
+        s = s._replace(
+            vresp=s.vresp | fp,
+            vgrant=torch.where(fp, ~m["reject"][:, None], s.vgrant),
+        )
+        granted_pv = (s.vgrant & s.voting).sum(dim=1).to(i32)
+        rejected_pv = (s.vresp & ~s.vgrant & s.voting).sum(dim=1).to(i32)
+        q = _quorum(s)
+        win_pv = pvr & (granted_pv >= q)
+        lose_pv = pvr & ~win_pv & (rejected_pv >= q)
+        s, out = _campaign(s, win_pv, out, torch.zeros_like(win_pv), force_real=win_pv)
+        s = _become_follower(s, lose_pv, s.term, torch.zeros_like(s.leader))
+
+    # ---- Election / TimeoutNow --------------------------------------------
+    if _has(kinds, MSG.ELECTION) or _has(kinds, MSG.TIMEOUT_NOW):
+        ele = act & (mtype == MSG.ELECTION)
+        tno = act & (mtype == MSG.TIMEOUT_NOW) & is_fol
+        s, out = _campaign(s, ele | tno, out, transfer_hint=tno)
+
+    # ---- Replicate (non-leader) -------------------------------------------
+    rep = lanes(MSG.REPLICATE, lambda: is_fol | is_obs | is_wit | is_cand | is_precand)
+    if _some(rep):
+        rep_demote = rep & (is_cand | is_precand)
+        s = _become_follower(
+            s, rep_demote, s.term, torch.where(rep_demote, from_slot + 1, s.leader)
+        )
+        s = s._replace(
+            leader=torch.where(rep, from_slot + 1, s.leader),
+            election_tick=_where(rep, 0, s.election_tick),
+        )
+        prev = li
+        stale = rep & (prev < s.committed)
+        match_prev = _term_at(s, prev) == m["log_term"]
+        in_window = (prev >= s.first_index - 1) & (prev <= s.last_index)
+        ok = rep & ~stale & match_prev & in_window
+        rej = rep & ~stale & ~ok
+        out["ctr_replicate_rejects"] = out["ctr_replicate_rejects"] + rej.to(i32)
+        if E > 0:
+            ar_e = torch.arange(E, dtype=i32, device=dev)[None, :]
+            e_idx = prev[:, None] + 1 + ar_e
+            e_valid = ar_e < nent[:, None]
+            have = e_idx <= s.last_index[:, None]
+            exist_term = torch.gather(s.log_term, 1, (e_idx % W).long())
+            conflict = e_valid & (~have | (exist_term != m["entry_terms"]))
+            first_conf = _where(conflict, e_idx, INT_MAX).min(dim=1).values
+            any_conf = conflict.any(dim=1)
+            do_append = ok & any_conf
+            w_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
+            lo = _where(do_append, first_conf, 1)
+            hi = prev + nent
+            i_w = lo[:, None] + (w_idx - lo[:, None]) % W
+            written = do_append[:, None] & (i_w <= hi[:, None])
+            e_pos = torch.clamp(i_w - (prev[:, None] + 1), 0, E - 1).long()
+            terms_w = torch.gather(m["entry_terms"], 1, e_pos)
+            cc_w = torch.gather(m["entry_cc"], 1, e_pos)
+            s = s._replace(
+                log_term=torch.where(written, terms_w, s.log_term),
+                log_is_cc=torch.where(written, cc_w, s.log_is_cc),
+                last_index=torch.where(do_append, prev + nent, s.last_index),
+                unsaved_from=torch.where(
+                    do_append, torch.minimum(s.unsaved_from, first_conf), s.unsaved_from
+                ),
+            )
+        ack_to = prev + nent
+        new_commit = torch.clamp(torch.minimum(ack_to, m["commit"]), s.committed, s.last_index)
+        s = s._replace(committed=torch.where(ok, new_commit, s.committed))
+        rep_base = torch.where(ok, prev + 1, rep_base)
+        resp_type = _where(rep, MSG.REPLICATE_RESP, resp_type)
+        resp_log_index = torch.where(
+            stale, s.committed,
+            torch.where(ok, ack_to, torch.where(rej, prev, resp_log_index)),
+        )
+        resp_reject = resp_reject | rej
+        resp_hint = torch.where(rej, s.last_index, resp_hint)
 
     # ---- Heartbeat (non-leader) -------------------------------------------
-    hb = act & (mtype == MSG.HEARTBEAT) & (is_fol | is_obs | is_wit | is_cand | is_precand)
-    hb_demote = hb & (is_cand | is_precand)
-    s = _become_follower(
-        s, hb_demote, s.term, torch.where(hb_demote, from_slot + 1, s.leader)
-    )
-    s = s._replace(
-        leader=torch.where(hb, from_slot + 1, s.leader),
-        election_tick=_where(hb, 0, s.election_tick),
-        committed=torch.where(
-            hb, torch.clamp(m["commit"], s.committed, s.last_index), s.committed
-        ),
-    )
-    resp_type = _where(hb, MSG.HEARTBEAT_RESP, resp_type)
-    resp_log_index = torch.where(hb, m["log_index"], resp_log_index)
-    resp_hint = torch.where(hb, m["hint"], resp_hint)
-    resp_hint2 = torch.where(hb, m["hint_high"], resp_hint2)
+    hb = lanes(MSG.HEARTBEAT, lambda: is_fol | is_obs | is_wit | is_cand | is_precand)
+    if _some(hb):
+        hb_demote = hb & (is_cand | is_precand)
+        s = _become_follower(
+            s, hb_demote, s.term, torch.where(hb_demote, from_slot + 1, s.leader)
+        )
+        s = s._replace(
+            leader=torch.where(hb, from_slot + 1, s.leader),
+            election_tick=_where(hb, 0, s.election_tick),
+            committed=torch.where(
+                hb, torch.clamp(m["commit"], s.committed, s.last_index), s.committed
+            ),
+        )
+        resp_type = _where(hb, MSG.HEARTBEAT_RESP, resp_type)
+        resp_log_index = torch.where(hb, li, resp_log_index)
+        resp_hint = torch.where(hb, m["hint"], resp_hint)
+        resp_hint2 = torch.where(hb, m["hint_high"], resp_hint2)
 
     # ---- ReplicateResp (leader) -------------------------------------------
-    rr = act & (mtype == MSG.REPLICATE_RESP) & (s.role == ROLE.LEADER) & known_from
-    fr = from_onehot
-    li = m["log_index"]
-    prev_rstate = s.rstate
-    racc = rr & ~m["reject"]
-    from_val = lambda a: torch.where(fr, a, torch.zeros_like(a)).sum(dim=1).to(i32)
-    moved = racc & (li > from_val(s.match))
-    fa = racc[:, None] & fr
-    s = s._replace(
-        ract=s.ract | (rr[:, None] & fr),
-        match=torch.where(fa, torch.maximum(s.match, li[:, None]), s.match),
-        next=torch.where(fa, torch.maximum(s.next, li[:, None] + 1), s.next),
-    )
-    st = s.rstate
-    mv = moved[:, None] & fr
-    st = _where(mv & (st == RSTATE.WAIT), RSTATE.RETRY, st)
-    st = _where(mv & (st == RSTATE.RETRY), RSTATE.REPLICATE, st)
-    caught = s.match >= s.snap_sent
-    st = _where(mv & (st == RSTATE.SNAPSHOT) & caught, RSTATE.RETRY, st)
-    s = s._replace(rstate=st)
-    rrej = rr & m["reject"]
-    in_repl = (fr & (prev_rstate == RSTATE.REPLICATE)).any(dim=1)
-    cur_match = from_val(s.match)
-    cur_next = from_val(s.next)
-    valid_repl = rrej & in_repl & (li > cur_match)
-    valid_probe = rrej & ~in_repl & (cur_next - 1 == li)
-    nn = torch.where(
-        valid_repl,
-        cur_match + 1,
-        torch.clamp(torch.minimum(li, m["hint"] + 1), min=1),
-    )
-    dec = valid_repl | valid_probe
-    s = s._replace(
-        next=torch.where(dec[:, None] & fr, nn[:, None], s.next),
-        rstate=_where(dec[:, None] & fr, RSTATE.RETRY, s.rstate),
-    )
-    tt = s.transfer_to
-    t_caught = racc & (tt != 0) & (from_slot + 1 == tt) & (from_val(s.match) == s.last_index)
-    out["send_flags"] = torch.where(
-        t_caught[:, None] & fr, out["send_flags"] | SEND_TIMEOUT_NOW, out["send_flags"]
-    )
+    rr = lanes(MSG.REPLICATE_RESP, lambda: leads() & known_from)
+    if _some(rr):
+        prev_rstate = s.rstate
+        racc = rr & ~m["reject"]
+        moved = racc & (li > from_val(s.match))
+        fa = racc[:, None] & fr
+        s = s._replace(
+            ract=s.ract | (rr[:, None] & fr),
+            match=torch.where(fa, torch.maximum(s.match, li[:, None]), s.match),
+            next=torch.where(fa, torch.maximum(s.next, li[:, None] + 1), s.next),
+        )
+        # WAIT -> RETRY -> REPLICATE in one step, SNAPSHOT -> RETRY once caught
+        st = s.rstate
+        mv = moved[:, None] & fr
+        caught = s.match >= s.snap_sent
+        st = _where(
+            mv & ((st == RSTATE.WAIT) | (st == RSTATE.RETRY)), RSTATE.REPLICATE,
+            _where(mv & (st == RSTATE.SNAPSHOT) & caught, RSTATE.RETRY, st),
+        )
+        rrej = rr & m["reject"]
+        in_repl = (fr & (prev_rstate == RSTATE.REPLICATE)).any(dim=1)
+        cur_match = from_val(s.match)
+        cur_next = from_val(s.next)
+        valid_repl = rrej & in_repl & (li > cur_match)
+        valid_probe = rrej & ~in_repl & (cur_next - 1 == li)
+        nn = torch.where(
+            valid_repl,
+            cur_match + 1,
+            torch.clamp(torch.minimum(li, m["hint"] + 1), min=1),
+        )
+        dec = (valid_repl | valid_probe)[:, None] & fr
+        s = s._replace(
+            next=torch.where(dec, nn[:, None], s.next),
+            rstate=_where(dec, RSTATE.RETRY, st),
+        )
+        tt = s.transfer_to
+        t_caught = racc & (tt != 0) & (from_slot + 1 == tt) & (cur_match == s.last_index)
+        out["send_flags"] = torch.where(
+            t_caught[:, None] & fr, out["send_flags"] | SEND_TIMEOUT_NOW, out["send_flags"]
+        )
 
     # ---- HeartbeatResp (leader) -------------------------------------------
-    hr = act & (mtype == MSG.HEARTBEAT_RESP) & (s.role == ROLE.LEADER) & known_from
-    hf = hr[:, None] & fr
-    s = s._replace(
-        ract=s.ract | hf,
-        rstate=_where(hf & (s.rstate == RSTATE.WAIT), RSTATE.RETRY, s.rstate),
-    )
-    out["force_probe"] = out["force_probe"] | (hf & (s.match < s.last_index[:, None]))
-    hint_match = (
-        hr[:, None]
-        & (s.ri_ctx == m["hint"][:, None])
-        & (s.ri_ctx2 == m["hint_high"][:, None])
-        & (s.ri_ctx != 0)
-    )
-    frombit = _shl1(from_slot)
-    s = s._replace(ri_acks=torch.where(hint_match, s.ri_acks | frombit[:, None], s.ri_acks))
-    tag_match = (
-        hr
-        & s.lease_on
-        & (li != 0)
-        & (li == s.hb_round_tick)
-        & (fr & s.voting).any(dim=1)
-    )
-    new_bits = torch.where(tag_match, s.hb_ack_bits | frombit, s.hb_ack_bits)
-    ackn = _popcount(new_bits)
-    lgrant = (
-        hr & s.lease_on & s.clock_ok & (s.hb_round_tick != 0) & (ackn + 1 >= _quorum(s))
-    )
-    s = s._replace(
-        hb_ack_bits=new_bits,
-        lease_until=torch.where(
-            lgrant,
-            torch.maximum(
-                s.lease_until, s.hb_round_tick + s.election_timeout - s.lease_margin
+    hr = lanes(MSG.HEARTBEAT_RESP, lambda: leads() & known_from)
+    if _some(hr):
+        hf = hr[:, None] & fr
+        s = s._replace(
+            ract=s.ract | hf,
+            rstate=_where(hf & (s.rstate == RSTATE.WAIT), RSTATE.RETRY, s.rstate),
+        )
+        out["force_probe"] = out["force_probe"] | (hf & (s.match < s.last_index[:, None]))
+        hint_match = (
+            hr[:, None]
+            & (s.ri_ctx == m["hint"][:, None])
+            & (s.ri_ctx2 == m["hint_high"][:, None])
+            & (s.ri_ctx != 0)
+        )
+        frombit = _shl1(from_slot)
+        s = s._replace(ri_acks=torch.where(hint_match, s.ri_acks | frombit[:, None], s.ri_acks))
+        tag_match = (
+            hr
+            & s.lease_on
+            & (li != 0)
+            & (li == s.hb_round_tick)
+            & (fr & s.voting).any(dim=1)
+        )
+        new_bits = torch.where(tag_match, s.hb_ack_bits | frombit, s.hb_ack_bits)
+        ackn = _popcount(new_bits)
+        lgrant = (
+            hr & s.lease_on & s.clock_ok & (s.hb_round_tick != 0) & (ackn + 1 >= _quorum(s))
+        )
+        s = s._replace(
+            hb_ack_bits=new_bits,
+            lease_until=torch.where(
+                lgrant,
+                torch.maximum(
+                    s.lease_until, s.hb_round_tick + s.election_timeout - s.lease_margin
+                ),
+                s.lease_until,
             ),
-            s.lease_until,
-        ),
-    )
+        )
 
     # ---- ReadIndex (leader) ------------------------------------------------
-    R = s.ri_ctx.shape[1]
-    ri = act & (mtype == MSG.READ_INDEX) & (s.role == ROLE.LEADER)
-    single = _num_voting(s) == 1
-    committed_this_term = _term_at(s, s.committed) == s.term
-    ok_ri = ri & (single | committed_this_term)
-    slot_free = s.ri_count < R
-    lease_valid = (
-        s.lease_on & s.clock_ok & (s.tick_count < s.lease_until) & (s.transfer_to == 0)
-    )
-    imm_lease = ok_ri & ~single & lease_valid & slot_free
-    enq = ok_ri & ~single & ~lease_valid & slot_free
-    posm = _one_hot(s.ri_count, R) & enq[:, None]
-    s = s._replace(
-        ri_ctx=torch.where(posm, m["hint"][:, None], s.ri_ctx),
-        ri_ctx2=torch.where(posm, m["hint_high"][:, None], s.ri_ctx2),
-        ri_index=torch.where(posm, s.committed[:, None], s.ri_index),
-        ri_acks=_where(posm, 0, s.ri_acks),
-        ri_count=s.ri_count + enq.to(i32),
-    )
-    others_v = s.voting & ~selfm
-    eo = enq[:, None] & others_v
-    out["send_flags"] = torch.where(eo, out["send_flags"] | SEND_HEARTBEAT, out["send_flags"])
-    out["ctr_heartbeats_sent"] = out["ctr_heartbeats_sent"] + eo.sum(dim=1).to(i32)
-    out["send_hint"] = torch.where(eo, m["hint"][:, None], out["send_hint"])
-    out["send_hint2"] = torch.where(eo, m["hint_high"][:, None], out["send_hint2"])
-    imm = (ok_ri & single) | imm_lease
-    posm2 = _one_hot(s.ri_count, R) & imm[:, None]
-    s = s._replace(
-        ri_ctx=torch.where(posm2, m["hint"][:, None], s.ri_ctx),
-        ri_ctx2=torch.where(posm2, m["hint_high"][:, None], s.ri_ctx2),
-        ri_index=torch.where(posm2, s.committed[:, None], s.ri_index),
-        ri_acks=_where(posm2, -1, s.ri_acks),
-        ri_count=s.ri_count + imm.to(i32),
-    )
-    out["lease_served"] = out["lease_served"] + imm_lease.to(i32)
-    out["lease_fallback"] = out["lease_fallback"] + (enq & s.lease_on).to(i32)
+    ri = lanes(MSG.READ_INDEX, leads)
+    if _some(ri):
+        single = _num_voting(s) == 1
+        committed_this_term = _term_at(s, s.committed) == s.term
+        ok_ri = ri & (single | committed_this_term)
+        slot_free = s.ri_count < R
+        lease_valid = (
+            s.lease_on & s.clock_ok & (s.tick_count < s.lease_until) & (s.transfer_to == 0)
+        )
+        imm_lease = ok_ri & ~single & lease_valid & slot_free
+        enq = ok_ri & ~single & ~lease_valid & slot_free
+        imm = (ok_ri & single) | imm_lease
+        # enq and imm select disjoint lanes, each one queue slot at ri_count:
+        # queued reads wait for acks (0), immediate ones are confirmed (-1)
+        posm = _one_hot(s.ri_count, R) & (enq | imm)[:, None]
+        s = s._replace(
+            ri_ctx=torch.where(posm, m["hint"][:, None], s.ri_ctx),
+            ri_ctx2=torch.where(posm, m["hint_high"][:, None], s.ri_ctx2),
+            ri_index=torch.where(posm, s.committed[:, None], s.ri_index),
+            ri_acks=torch.where(posm, _where(enq, 0, -1)[:, None], s.ri_acks),
+            ri_count=s.ri_count + enq.to(i32) + imm.to(i32),
+        )
+        eo = enq[:, None] & s.voting & ~selfm
+        out["send_flags"] = torch.where(eo, out["send_flags"] | SEND_HEARTBEAT, out["send_flags"])
+        out["ctr_heartbeats_sent"] = out["ctr_heartbeats_sent"] + eo.sum(dim=1).to(i32)
+        out["send_hint"] = torch.where(eo, m["hint"][:, None], out["send_hint"])
+        out["send_hint2"] = torch.where(eo, m["hint_high"][:, None], out["send_hint2"])
+        out["lease_served"] = out["lease_served"] + imm_lease.to(i32)
+        out["lease_fallback"] = out["lease_fallback"] + (enq & s.lease_on).to(i32)
 
     # ---- Propose (leader) --------------------------------------------------
-    pp = act & (mtype == MSG.PROPOSE)
-    pok = pp & (s.role == ROLE.LEADER) & (s.transfer_to == 0)
-    e_in_msg = torch.arange(E, dtype=i32, device=dev)[None, :] < nent[:, None]
-    has_cc = (m["entry_cc"] & e_in_msg).any(dim=1)
-    cc_allowed = pok & has_cc & ~s.pending_cc
-    cc_stripped = pok & has_cc & s.pending_cc
-    s = s._replace(pending_cc=s.pending_cc | cc_allowed)
-    out["dropped_cc"] = out["dropped_cc"] | cc_stripped
-    room = s.last_index - s.first_index + 1 + nent <= W
-    can_append = pok & room
-    prop_base = torch.where(can_append, s.last_index + 1, prop_base)
-    if E > 0:
-        eff_cc = m["entry_cc"] & cc_allowed[:, None]
-        w_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
-        a_lo = s.last_index + 1
-        a_hi = s.last_index + nent
-        i_w = a_lo[:, None] + (w_idx - a_lo[:, None]) % W
-        written = can_append[:, None] & (i_w <= a_hi[:, None])
-        e_pos = torch.clamp(i_w - a_lo[:, None], 0, E - 1).long()
-        cc_w = torch.gather(eff_cc, 1, e_pos)
-        new_last = torch.where(can_append, s.last_index + nent, s.last_index)
-        s = s._replace(
-            log_term=torch.where(written, s.term[:, None], s.log_term),
-            log_is_cc=torch.where(written, cc_w, s.log_is_cc),
-            last_index=new_last,
-            match=torch.where(selfm & can_append[:, None], new_last[:, None], s.match),
-        )
-    out["dropped_propose"] = out["dropped_propose"] + _where(pp & ~can_append, nent, 0)
-    out["fwd_leader"] = torch.where(pp & ~pok, s.leader, out["fwd_leader"])
-    out["log_full"] = out["log_full"] | (pok & ~room)
+    pp = lanes(MSG.PROPOSE, lambda: True)
+    if _some(pp):
+        pok = pp & (s.role == ROLE.LEADER) & (s.transfer_to == 0)
+        e_in_msg = torch.arange(E, dtype=i32, device=dev)[None, :] < nent[:, None]
+        has_cc = (m["entry_cc"] & e_in_msg).any(dim=1)
+        cc_allowed = pok & has_cc & ~s.pending_cc
+        cc_stripped = pok & has_cc & s.pending_cc
+        s = s._replace(pending_cc=s.pending_cc | cc_allowed)
+        out["dropped_cc"] = out["dropped_cc"] | cc_stripped
+        room = s.last_index - s.first_index + 1 + nent <= W
+        can_append = pok & room
+        prop_base = torch.where(can_append, s.last_index + 1, prop_base)
+        if E > 0:
+            eff_cc = m["entry_cc"] & cc_allowed[:, None]
+            w_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
+            a_lo = s.last_index + 1
+            a_hi = s.last_index + nent
+            i_w = a_lo[:, None] + (w_idx - a_lo[:, None]) % W
+            written = can_append[:, None] & (i_w <= a_hi[:, None])
+            e_pos = torch.clamp(i_w - a_lo[:, None], 0, E - 1).long()
+            cc_w = torch.gather(eff_cc, 1, e_pos)
+            new_last = torch.where(can_append, s.last_index + nent, s.last_index)
+            s = s._replace(
+                log_term=torch.where(written, s.term[:, None], s.log_term),
+                log_is_cc=torch.where(written, cc_w, s.log_is_cc),
+                last_index=new_last,
+                match=torch.where(selfm & can_append[:, None], new_last[:, None], s.match),
+            )
+        out["dropped_propose"] = out["dropped_propose"] + _where(pp & ~can_append, nent, 0)
+        out["fwd_leader"] = torch.where(pp & ~pok, s.leader, out["fwd_leader"])
+        out["log_full"] = out["log_full"] | (pok & ~room)
 
     # ---- ReadIndexResp (follower/observer) --------------------------------
-    rir = act & (mtype == MSG.READ_INDEX_RESP) & (is_fol | is_obs)
-    s = s._replace(
-        leader=torch.where(rir, from_slot + 1, s.leader),
-        election_tick=_where(rir, 0, s.election_tick),
-    )
-    rir_ok = rir & (s.ri_count < R)
-    posm3 = _one_hot(s.ri_count, R) & rir_ok[:, None]
-    s = s._replace(
-        ri_ctx=torch.where(posm3, m["hint"][:, None], s.ri_ctx),
-        ri_ctx2=torch.where(posm3, m["hint_high"][:, None], s.ri_ctx2),
-        ri_index=torch.where(posm3, li[:, None], s.ri_index),
-        ri_acks=_where(posm3, -1, s.ri_acks),
-        ri_count=s.ri_count + rir_ok.to(i32),
-    )
+    rir = lanes(MSG.READ_INDEX_RESP, lambda: is_fol | is_obs)
+    if _some(rir):
+        s = s._replace(
+            leader=torch.where(rir, from_slot + 1, s.leader),
+            election_tick=_where(rir, 0, s.election_tick),
+        )
+        rir_ok = rir & (s.ri_count < R)
+        posm3 = _one_hot(s.ri_count, R) & rir_ok[:, None]
+        s = s._replace(
+            ri_ctx=torch.where(posm3, m["hint"][:, None], s.ri_ctx),
+            ri_ctx2=torch.where(posm3, m["hint_high"][:, None], s.ri_ctx2),
+            ri_index=torch.where(posm3, li[:, None], s.ri_index),
+            ri_acks=_where(posm3, -1, s.ri_acks),
+            ri_count=s.ri_count + rir_ok.to(i32),
+        )
 
     # ---- LeaderTransfer (leader) ------------------------------------------
-    lt = act & (mtype == MSG.LEADER_TRANSFER) & (s.role == ROLE.LEADER)
-    target = m["hint"]
-    lt_ok = lt & (s.transfer_to == 0) & (target != s.self_slot + 1) & (target != 0)
-    s = s._replace(
-        transfer_to=torch.where(lt_ok, target, s.transfer_to),
-        election_tick=_where(lt_ok, 0, s.election_tick),
-    )
-    t_oh = _one_hot(torch.clamp(target - 1, min=0), P)
-    t_match = torch.where(t_oh, s.match, torch.zeros_like(s.match)).sum(dim=1).to(i32)
-    fast = lt_ok & (t_match == s.last_index)
-    out["send_flags"] = torch.where(
-        fast[:, None] & t_oh, out["send_flags"] | SEND_TIMEOUT_NOW, out["send_flags"]
-    )
+    lt = lanes(MSG.LEADER_TRANSFER, leads)
+    if _some(lt):
+        target = m["hint"]
+        lt_ok = lt & (s.transfer_to == 0) & (target != s.self_slot + 1) & (target != 0)
+        s = s._replace(
+            transfer_to=torch.where(lt_ok, target, s.transfer_to),
+            election_tick=_where(lt_ok, 0, s.election_tick),
+        )
+        t_oh = _one_hot(torch.clamp(target - 1, min=0), P)
+        t_match = torch.where(t_oh, s.match, torch.zeros_like(s.match)).sum(dim=1).to(i32)
+        fast = lt_ok & (t_match == s.last_index)
+        out["send_flags"] = torch.where(
+            fast[:, None] & t_oh, out["send_flags"] | SEND_TIMEOUT_NOW, out["send_flags"]
+        )
 
     # ---- Unreachable / SnapshotStatus (leader) -----------------------------
-    un = act & (mtype == MSG.UNREACHABLE) & (s.role == ROLE.LEADER) & known_from
-    s = s._replace(
-        rstate=_where(
-            un[:, None] & fr & (s.rstate == RSTATE.REPLICATE), RSTATE.RETRY, s.rstate
+    un = lanes(MSG.UNREACHABLE, lambda: leads() & known_from)
+    if _some(un):
+        s = s._replace(
+            rstate=_where(
+                un[:, None] & fr & (s.rstate == RSTATE.REPLICATE), RSTATE.RETRY, s.rstate
+            )
         )
-    )
-    st2 = act & (mtype == MSG.SNAPSHOT_STATUS) & (s.role == ROLE.LEADER) & known_from
-    in_snap = st2[:, None] & fr & (s.rstate == RSTATE.SNAPSHOT)
-    s = s._replace(
-        snap_sent=_where(in_snap & m["reject"][:, None], 0, s.snap_sent),
-        next=torch.where(in_snap, torch.maximum(s.match + 1, s.snap_sent + 1), s.next),
-        rstate=_where(in_snap, RSTATE.WAIT, s.rstate),
-    )
+    st2 = lanes(MSG.SNAPSHOT_STATUS, lambda: leads() & known_from)
+    if _some(st2):
+        in_snap = st2[:, None] & fr & (s.rstate == RSTATE.SNAPSHOT)
+        s = s._replace(
+            snap_sent=_where(in_snap & m["reject"][:, None], 0, s.snap_sent),
+            next=torch.where(in_snap, torch.maximum(s.match + 1, s.snap_sent + 1), s.next),
+            rstate=_where(in_snap, RSTATE.WAIT, s.rstate),
+        )
 
     resps = {
         "resp_type": _where(act | noop_resp | pv_stale, resp_type, MSG.NONE),

@@ -56,7 +56,8 @@ def run(pkg: str, script, stall: float) -> dict:
         orig(self)
         iteration_s.append(time.perf_counter() - t0)
         bursts.append(int(self._last_tick_burst))
-        s = self._state
+        # the port's unsharded engine keeps its state in its one shard
+        s = self._shards[0].state if hasattr(self, "_shards") else self._state
         lanes = np.nonzero(host(s.lease_on) & (host(s.role) == ROLE_LEADER))[0]
         caps.update(self._m_tick_cap[lanes].tolist())
         tick = host(s.tick_count)[lanes]

@@ -10,8 +10,8 @@ import pytest
 import torch
 
 
-# the rejoin family's tick on the CPU (the reference's is 5 ms)
-CPU_RTT_MS = 20
+# the rejoin family's tick on the CPU, the reference's
+CPU_RTT_MS = 5
 
 
 @pytest.fixture(autouse=True)

@@ -22,11 +22,10 @@ import torch
 GROUPS, PROPOSALS, KEYS, BATCH = 4, 40, 3, 5
 MEMBERS = {n: f"rc:{n}" for n in range(1, 6)}
 LEASE_GROUPS = (1, 2)
-# a lease lives election_rtt - heartbeat_rtt ticks from the start of the
-# heartbeat round a quorum acked, and that round spans about three engine
-# steps: 38 ticks (1.9 s at 50 ms) outlast steps of ~600 ms on a loaded
-# host, where election_rtt=10 (8 ticks) lapses once steps pass ~130 ms
-ELECTION_RTT = 40
+# a lease lives election_rtt - heartbeat_rtt ticks (8 at 50 ms) from the
+# start of the heartbeat round a quorum acked, which spans about three
+# engine steps: it lapses once steps pass ~130 ms
+ELECTION_RTT = 10
 OBSERVER = 6
 
 

@@ -90,15 +90,10 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-# the port's CPU step is eager torch ops (a few ms a step, four engines
-# in one process here): its vector engine ticks every 100 ms where the
-# reference's ticks every 2-5 ms; the scalar engine keeps the reference's
-# tick. The election timeout stays 10 ticks. At 50 ms ticks, with the
-# tier-1 run's other processes on the same cores, a loop stalled 0.5-0.7 s
-# now and then: a follower's election timer ran out, the group re-elected
-# during the migration, and the member removal forwarded to the new leader
-# was lost with its step or committed after its 10 s timeout
-VECTOR_RTT_MS = 100
+# the vector engine ticks every 50 ms, as the reference's twin does (the
+# scalar engine keeps the reference's 2-5 ms); the election timeout stays
+# 10 ticks
+VECTOR_RTT_MS = 50
 
 def mk_host(nid, registry, engine_kind="vector", rtt_ms=5):
     return NodeHost(
