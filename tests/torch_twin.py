@@ -4,11 +4,20 @@
 module name mapped to `dragonboat_tpu_torch` and executes it as a module of
 its own, `test_x_on_port`: the reference's test bodies, fixtures, helper
 classes and seeds, bound to the port's NodeHost, engines, LoopbackCluster
-and scalar core. The port path imports nothing of the JAX package. Its
-engines run on the CPU: in the copy, `EngineConfig`, `NodeHostConfig`'s
-default engine and `LoopbackCluster` default to `device="cpu"` (the port's
-own default is the card). A `from tests.<m> import ...` in the reference
-loads `<m>` the same way.
+and scalar core. The port path imports nothing of the JAX package. A
+`from tests.<m> import ...` in the reference loads `<m>` the same way.
+
+The copy's engines run on the CPU (the port's own default is the card).
+Every import statement the copy executes, at module level or inside a
+function or fixture, goes through the copy's own `__import__`
+(`_copy_import`, installed as the copy's `__builtins__`): it hands out
+`EngineConfig`, `NodeHostConfig` (whose default engine is then a CPU one)
+and `LoopbackCluster` defaulting to `device="cpu"`, and resolves
+`import bench` (the reference's benchmark, a JAX program) to the port's
+counterpart `dragonboat_tpu_torch.e2e`, so a name that e2e lacks raises.
+Nothing outside the copy changes: the port's modules keep their own
+defaults. Source that a copy writes out for a child process runs the
+port as it is.
 
 `reference_tests(mod)` is what a twin file exports so that pytest collects
 the copy's tests (with their marks and parametrisations) and fixtures under
@@ -20,7 +29,9 @@ and hold the traces equal.
 """
 from __future__ import annotations
 
+import builtins
 import contextlib
+import functools
 import importlib
 import inspect
 import os
@@ -37,9 +48,23 @@ _TESTS_IMPORT = re.compile(r"^(\s*)from tests\.(\w+) import", re.M)
 SUFFIX = "_on_port"
 
 
-def _cpu_defaults(mod) -> None:
-    """Bind the copy's engine constructors to the CPU."""
+# the port's counterpart of the reference's bench.py
+BENCH = "dragonboat_tpu_torch.e2e"
+
+
+def _cpu_module(real, names):
+    """`real` with `names` in place of its own attributes."""
+    m = types.ModuleType(real.__name__, real.__doc__)
+    vars(m).update(names, __getattr__=lambda n: getattr(real, n))
+    return m
+
+
+@functools.cache
+def _cpu_modules() -> dict:
+    """The modules a copy imports its engine constructors from, each with
+    the constructors defaulting to the CPU."""
     C = importlib.import_module("dragonboat_tpu_torch.config")
+    L = importlib.import_module("dragonboat_tpu_torch.ops.loopback")
 
     def EngineConfig(*args, **kw):
         kw.setdefault("device", "cpu")
@@ -50,18 +75,28 @@ def _cpu_defaults(mod) -> None:
             kw["engine"] = EngineConfig()
         return C.NodeHostConfig(*args, **kw)
 
-    bound = {"EngineConfig": EngineConfig, "NodeHostConfig": NodeHostConfig}
-    if "LoopbackCluster" in vars(mod):
-        from dragonboat_tpu_torch.ops.loopback import LoopbackCluster as LC
+    class LoopbackCluster(L.LoopbackCluster):
+        def __init__(self, *args, device="cpu", **kw):
+            super().__init__(*args, device=device, **kw)
 
-        class LoopbackCluster(LC):
-            def __init__(self, *args, device="cpu", **kw):
-                super().__init__(*args, device=device, **kw)
+    return {C.__name__: _cpu_module(C, {"EngineConfig": EngineConfig,
+                                        "NodeHostConfig": NodeHostConfig}),
+            L.__name__: _cpu_module(L, {"LoopbackCluster": LoopbackCluster})}
 
-        bound["LoopbackCluster"] = LoopbackCluster
-    for name, obj in bound.items():
-        if name in vars(mod):
-            setattr(mod, name, obj)
+
+def _copy_import(name, globals=None, locals=None, fromlist=(), level=0):
+    """A copy's `__import__`: the CPU-bound constructors and the port's
+    bench; every other import as usual."""
+    if level == 0 and name == "bench":
+        return importlib.import_module(BENCH)
+    mod = __import__(name, globals, locals, fromlist, level)
+    if level == 0 and fromlist:
+        return _cpu_modules().get(name, mod)
+    return mod
+
+
+def _copy_builtins() -> dict:
+    return dict(vars(builtins), __import__=_copy_import)
 
 
 def port_source(name: str) -> str:
@@ -81,13 +116,13 @@ def port_copy(name: str) -> types.ModuleType:
     path = os.path.join(TESTS, name + ".py")
     mod = types.ModuleType(mod_name, None)
     mod.__file__ = path
+    mod.__builtins__ = _copy_builtins()
     sys.modules[mod_name] = mod
     try:
         exec(compile(port_source(name), path, "exec"), vars(mod))
     except BaseException:
         del sys.modules[mod_name]
         raise
-    _cpu_defaults(mod)
     return mod
 
 
