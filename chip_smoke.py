@@ -74,18 +74,21 @@ a streamed install resumed after a host crash, and its abort; a crash
 mid snapshot save, then the rejoin; each scenario's recorded states
 (witnesses, pre-candidates, live leases, installs in flight) then hold
 the step kernel, and at K=8 the router, against their plain versions.
-Phase 12 runs the scenarios of the reference's last five engine-level test
-files the same way and asserts their verdicts: a bulk fleet bring-up
+Phase 12 runs the reference's last five engine-level test files' own
+bodies on the card (tests/torch_twin.py copies them onto the port with
+their engines there) and asserts what they assert: a bulk fleet bring-up
 through start_clusters (2,048 single-replica groups, each led by its only
-replica, and 1,024 groups x 3 replicas on one core, with the census,
-counter and history gauges of that core in its exposition) and a bulk
-start restarted through start_cluster; the observability host's
-histograms, step stats and gauges; a causal trace chain across 3 hosts
-under a seeded partition schedule, rendered by tools.timeline; 1,024
-lanes electing and committing, and 256 quiesced lanes over which an idle
-second launches no step; and chaos at vector scale (drops, partitions,
-NodeHost kills and restarts) at 256 x 3 and 1,024 x 3 lanes, every group
-converged, linearizable and obeying Log Matching.
+replica) and a bulk start restarted through start_cluster; the
+observability host under its three engine tests; a causal trace chain
+across 3 hosts under a seeded partition schedule, rendered by
+tools.timeline; 1,024 lanes electing and committing, and 256 quiesced
+lanes, over whose idle second no step launches; chaos at vector scale
+(drops, partitions, NodeHost kills and restarts) at 256 x 3 and 1,024 x 3
+lanes, every group converged, linearizable and obeying Log Matching. It
+also brings 1,024 groups x 3 replicas up on one core and runs the
+observability census and history bodies there, and holds the step
+kernel on the steps just after bulk starts, stops, restarts, partitions,
+drops and the wake from quiesce as well.
 After
 each K=1 engine run of phases 5-9 the step kernel is held against its
 plain version on states that run stepped, at its own lanes, window and
@@ -97,10 +100,13 @@ present or any phase fails. The last line of its output is
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import pathlib
 import subprocess
 import sys
 import time
+import types
 import zlib
 
 import numpy as np
@@ -167,12 +173,27 @@ class StepRecorder:
     """While entered, keeps copies of the (state, inbox, ticks, cfg) that
     the vector engine's K=1 step is called with, spread over the whole
     run: one call in 4, halved (and the stride doubled) whenever 6 are
-    held. The copies are clones on the engine's stream (no
-    host read, no launch), for holding the kernel against its plain
-    version afterwards at the shapes the engine really ran."""
+    held. `pin(why)` also keeps the next call, whatever the stride, in
+    `pinned` (at most PIN_CAP for each reason). The copies are clones on
+    the engine's stream (no host read, no launch), for holding the kernel
+    against its plain version afterwards at the shapes the engine really
+    ran. The recorder entered last is `StepRecorder.active`."""
+
+    active = None
+    PIN_CAP = 2
 
     def __init__(self, K):
         self.K, self.keep, self.every, self.calls, self.kept = K, 3, 4, 0, []
+        self.pinned, self.pending, self.pins = [], set(), {}
+
+    def pin(self, why):
+        if self.pins.get(why, 0) < self.PIN_CAP:
+            self.pending.add(why)
+
+    @property
+    def states(self):
+        """(why, copy) of every state kept: "stride" or the pin's reasons."""
+        return [("stride", k) for k in self.kept] + self.pinned
 
     def __enter__(self):
         from dragonboat_tpu_torch.engine import vector
@@ -182,17 +203,26 @@ class StepRecorder:
 
         def step(s, inbox, ticks, cfg, out=None):
             self.calls += 1
-            if self.calls % self.every == 0:
-                self.kept.append((clone(s), clone(inbox), ticks.clone(), cfg))
+            whys, stride = self.pending, self.calls % self.every == 0
+            copy = (clone(s), clone(inbox), ticks.clone(), cfg) if whys or stride else None
+            if whys:
+                self.pending = set()
+                for w in whys:
+                    self.pins[w] = self.pins.get(w, 0) + 1
+                self.pinned.append(("+".join(sorted(whys)), copy))
+            if stride:
+                self.kept.append(copy)
                 if len(self.kept) == 2 * self.keep:
                     self.kept, self.every = self.kept[1::2], 2 * self.every
             return self._inner(s, inbox, ticks, cfg, out=out)
 
         vector.step_batch = step
+        StepRecorder.active = self
         return self
 
     def __exit__(self, *exc):
         self._vector.step_batch = self._inner
+        StepRecorder.active = None
         return False
 
 
@@ -202,17 +232,19 @@ def compare_recorded(K, cuda, rec, seed):
     inboxes (kernel_bench.random_inbox), every field, each sentinel fill.
     Fails on any mismatch. Returns the shape, the number of cases, the
     largest error, how many lanes had a wrapped log ring (last index at
-    or past the window) and the seconds the comparison took."""
+    or past the window), each state's reason with its active and quiesced
+    lanes, and the seconds the comparison took."""
     from dragonboat_tpu_torch.kernel_bench import random_inbox
     from dragonboat_tpu_torch.ops.convert import state_from_numpy, state_to_numpy
 
-    assert rec.kept, "the engine's step was never recorded"
+    assert rec.states, "the engine's step was never recorded"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
-    cases, bad_all, err_all, wrapped, top = 0, set(), 0, 0, 0
-    for st, ib, ticks, cfg in rec.kept:
+    cases, bad_all, err_all, wrapped, top, per_state = 0, set(), 0, 0, 0, []
+    for why, (st, ib, ticks, cfg) in rec.states:
         npst = state_to_numpy(st)
+        per_state.append([why, int(npst["active"].sum()), int(npst["quiesced"].sum())])
         wrapped = max(wrapped, int((npst["last_index"] >= cfg.log_window).sum()))
         top = max(top, int(npst["last_index"].max()))
         draws = [(ib, ticks)] + [
@@ -224,11 +256,12 @@ def compare_recorded(K, cuda, rec, seed):
             cases += 1
             bad_all |= set(bad)
             err_all = max(err_all, err)
-    cfg = rec.kept[-1][3]
+    cfg = rec.states[-1][1][3]
     out = {"lanes": cfg.groups, "peers": cfg.peers, "log_window": cfg.log_window,
-           "inbox_depth": cfg.inbox_depth, "cases": cases, "states": len(rec.kept),
+           "inbox_depth": cfg.inbox_depth, "cases": cases, "states": len(per_state),
            "mismatched_fields": sorted(bad_all), "max_abs_err": err_all,
            "wrapped_lanes": wrapped, "max_last_index": top,
+           "active_quiesced_lanes": per_state,
            "seconds": round(time.perf_counter() - t0, 2)}
     assert not bad_all, f"kernel disagrees with the plain version at the engine's shape: {out}"
     return out
@@ -3074,7 +3107,7 @@ def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
         if device == "cuda":
             assert r["plain_step_calls"] == 0, f"{name}: the engine ran the plain step on the card"
             assert r["launches"]["step_batch"] > 0, f"{name}: the step kernel never launched"
-            if rec.kept:
+            if rec.states:
                 r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, seed + i)
                 compared.append(r["kernel_vs_plain"])
             if srec.kept:
@@ -3086,6 +3119,7 @@ def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
             "scenario": name, "seconds": r["seconds"], "verdicts": r["verdicts"],
             "compared_cases": sum(c["cases"] for c in compared),
             "mismatched_fields": sorted({f for c in compared for f in c["mismatched_fields"]}),
+            "compared_states": [s for c in compared for s in c.get("active_quiesced_lanes", ())],
             "card": card, **{k: v for k, v in r.items() if k not in (
                 "seconds", "verdicts", "kernel_vs_plain", "superstep_vs_plain")}},
             default=str))
@@ -3116,68 +3150,121 @@ def phase_scenarios(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
     return out
 
 
-# ------- phase 12: the reference's last engine-level scenarios on the card
+# ------- phase 12: the reference's last engine-level test files on the card
 
-# (f) tests/test_bring_up.py's fleet at its shape (2,048 single-replica
-# groups, W=64, inbox 4, 16 entries a message, 10 ms ticks) and at config
-# 2's width (1,024 groups x 3 replicas on one core, phase 11's host and
-# group shapes); (g) tests/test_observability.py's single_host; (h)
-# tests/test_forensics.py's causal chain; (i) tests/test_vector_scale.py's
-# 1,024 and 256 lanes; (j) tests/test_chaos_scale.py at its shape (256 x 3)
-# and at config 2's width (1,024 x 3). Each at the reference test's ticks,
-# timeouts and seeds.
-FLEET_GROUPS = 2048
-FLEET_ELECT_S = 120  # the reference's bound on electing every group
-SCALE_GROUPS, QUIESCE_GROUPS = 1024, 256
-CAUSAL_SEED, CAUSAL_CLUSTER = 1789, 2
-CAUSAL_STAGES = ("propose_enqueue", "replicate_send", "quorum_commit", "proposal_applied")
-CHAOS_SCALE_SEED = 0xC0FFEE
-CHAOS_SCALE_GROUPS = 256
-CHAOS_SCALE_SAMPLED = (3, 64, 129, 230)  # lincheck'd groups; the rest carry bulk load
-CHAOS_SCALE_KEYS = ("k0", "k1", "k2")
-CHAOS_SCALE_FAULTS_S = 25.0  # the reference's fault window
+# Each scenario runs the reference test's own body: tests/<file>.py copied
+# onto the port by tests/torch_twin.py with its engines on the card, at
+# the test's shapes, ticks, timeouts and seeds; a body whose assertions
+# hold is a true verdict. (f) and (j) also run at config 2's width (1,024
+# groups x 3 replicas on one core).
+FLEET_ELECT_S = 120  # tests/test_bring_up.py's bound on electing every group
+FLEET_GROUPS = 2048  # test_bulk_fleet_bring_up's fleet
 
 
-def _single_host(tag, workdir, device, rtt_ms, groups, **engine):
-    """One loopback NodeHost (`tag`:1) on `device`, metrics on; with a
-    `workdir` its log is a WAL there."""
-    from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig
+def _reference(name, device):
+    """tests/<name>.py's copy on the port, its engines on `device`."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from torch_twin import port_copy
+
+    return port_copy(name, device)
+
+
+def _held(out, test, fn, *args):
+    """Run a reference test body: out["verdicts"][test] says whether its
+    assertions held, and out["failed"][test] keeps the message of one that
+    did not."""
+    try:
+        fn(*args)
+        out["verdicts"][test] = True
+    except AssertionError as e:
+        out["verdicts"][test] = False
+        out.setdefault("failed", {})[test] = str(e)[:500]
+
+
+def _with_fixture(fixture, arg, test):
+    """`test` on the value of the generator fixture `fixture` given `arg`,
+    set up and torn down as pytest does."""
+    with contextlib.contextmanager(fixture.__wrapped__)(arg) as value:
+        test(value)
+
+
+@contextlib.contextmanager
+def _patched(patches):
+    """Each (cls, name, wrap) of `patches` sets cls.name to wrap(the
+    original) during the block."""
+    saved = [(cls, n, getattr(cls, n)) for cls, n, _ in patches]
+    for (cls, n, f), (_, _, wrap) in zip(saved, patches):
+        setattr(cls, n, wrap(f))
+    try:
+        yield
+    finally:
+        for cls, n, f in saved:
+            setattr(cls, n, f)
+
+
+def _first_call(got, name):
+    """A wrap for _patched that notes the time of the first call in `got`."""
+    def wrap(f):
+        def call(self, *a, **kw):
+            got.setdefault(name, time.monotonic())
+            return f(self, *a, **kw)
+        return call
+    return wrap
+
+
+def _pin_after(why):
+    """A wrap for _patched: after each call, the active StepRecorder keeps
+    the next engine step, under the reason why(self, *args) if there is
+    one."""
+    def wrap(f):
+        def call(self, *a, **kw):
+            r = f(self, *a, **kw)
+            w, rec = why(self, *a, **kw), StepRecorder.active
+            if w and rec is not None:
+                rec.pin(w)
+            return r
+        return call
+    return wrap
+
+
+def pinned_faults():
+    """The engine step just after each bulk start ("bulk_start", or
+    "restart" on an address that stopped before under the same recorder),
+    host stop ("stopped"), partition ("partitioned") and local drop hook
+    ("drops") is kept."""
+    from dragonboat_tpu_torch.engine.vector import VectorEngine
     from dragonboat_tpu_torch.nodehost import NodeHost
-    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
 
-    reg = _Registry()
-    return NodeHost(NodeHostConfig(
-        deployment_id=1, rtt_millisecond=rtt_ms, raft_address=f"{tag}:1",
-        nodehost_dir=f"{workdir}/{tag}" if workdir else "", enable_metrics=True,
-        raft_rpc_factory=lambda a: loopback_factory(a, reg),
-        engine=EngineConfig(kind="vector", max_groups=groups, max_peers=4, log_window=64,
-                            device=device, **engine)))
+    seen = [None, set()]  # the recorder, the addresses stopped under it
+
+    def stopped():
+        if seen[0] is not StepRecorder.active:
+            seen[:] = [StepRecorder.active, set()]
+        return seen[1]
+
+    def on_stop(nh):
+        stopped().add(nh.raft_address())
+        return "stopped"
+
+    def on_start(nh, *_):
+        return "restart" if nh.raft_address() in stopped() else "bulk_start"
+
+    return _patched((
+        (NodeHost, "start_clusters", _pin_after(on_start)),
+        (NodeHost, "stop", _pin_after(on_stop)),
+        (NodeHost, "set_partitioned", _pin_after(lambda nh, on: "partitioned" if on else None)),
+        (VectorEngine, "set_local_drop_hook", _pin_after(lambda e, h: "drops" if h else None))))
 
 
-def _count_sm():
-    from dragonboat_tpu_torch.statemachine import IStateMachine, Result
+def _activation_batches():
+    from dragonboat_tpu_torch.engine import vector
 
-    class Count(IStateMachine):
-        """Counts its updates (tests/test_bring_up.py's and
-        tests/test_vector_scale.py's state machine)."""
-
-        def __init__(self, *_):
-            self.n = 0
-
-        def update(self, data):
-            self.n += 1
-            return Result(value=self.n)
-
-        def lookup(self, q):
-            return self.n
-
-        def save_snapshot(self, w, fc, done):
-            w.write(self.n.to_bytes(8, "little"))
-
-        def recover_from_snapshot(self, r, fc, done):
-            self.n = int.from_bytes(r.read(8), "little")
-
-    return Count
+    return {"batches": sum(vector.ACTIVATIONS.values()),
+            "by_size": {str(k): v for k, v in sorted(vector.ACTIVATIONS.items())}}
 
 
 def _elect_all(nh, groups, timeout_s):
@@ -3192,136 +3279,45 @@ def _elect_all(nh, groups, timeout_s):
     return time.monotonic() - t0, leaders
 
 
-def _activation_batches():
+def scen_bulk_fleet(workdir, device):
+    """tests/test_bring_up.py's test_bulk_fleet_bring_up: 2,048
+    single-replica groups through one start_clusters call (W=64, inbox 4,
+    16 entries a message, 10 ms ticks), every group elected within 120 s
+    and led by its only replica, a proposal commits. Also the seconds from
+    start_clusters to the test's first proposal, which it makes once every
+    group has a leader, and the activation batches of the bring-up."""
     from dragonboat_tpu_torch.engine import vector
+    from dragonboat_tpu_torch.nodehost import NodeHost
 
-    return {"batches": sum(vector.ACTIVATIONS.values()),
-            "by_size": {str(k): v for k, v in sorted(vector.ACTIVATIONS.items())}}
-
-
-def scen_bulk_fleet(workdir, device, groups=FLEET_GROUPS):
-    """tests/test_bring_up.py's test_bulk_fleet_bring_up at its shape:
-    `groups` single-replica groups through one start_clusters call (one
-    bootstrap fsync per logdb shard), each electing itself. Verdicts (the
-    reference's): every group elected within 120 s, each led by its only
-    replica, a proposal commits."""
-    from dragonboat_tpu_torch.config import Config
-    from dragonboat_tpu_torch.engine import vector
-
-    Count = _count_sm()
-    nh = _single_host("bu", workdir, device, 10, groups, inbox_depth=4, max_entries_per_msg=16)
-    try:
-        vector.ACTIVATIONS.clear()
-        t0 = time.monotonic()
-        nh.start_clusters([({1: "bu:1"}, False, lambda c, n: Count(),
-                            Config(node_id=1, cluster_id=c, election_rtt=20, heartbeat_rtt=2))
-                           for c in range(1, groups + 1)])
-        start_s = time.monotonic() - t0
-        elect_s, leaders = _elect_all(nh, groups, FLEET_ELECT_S - start_s)
-        r = nh.sync_propose(nh.get_noop_session(groups // 2 or 1), b"x", 15.0)
-        return {"groups": groups, "lanes": groups, "start_clusters_s": round(start_s, 3),
-                "elect_all_s": round(start_s + elect_s, 3), "activation": _activation_batches(),
-                "verdicts": {"every_group_elected": len(leaders) == groups,
-                             "led_by_its_only_replica": set(leaders.values()) == {1},
-                             "proposal_committed": r.value == 1}}
-    finally:
-        nh.stop()
+    B = _reference("test_bring_up", device)
+    out, t = {"verdicts": {}}, {}
+    vector.ACTIVATIONS.clear()
+    with _patched([(NodeHost, n, _first_call(t, n)) for n in ("start_clusters", "sync_propose")]):
+        _held(out, "test_bulk_fleet_bring_up", B.test_bulk_fleet_bring_up, pathlib.Path(workdir))
+    out["groups"] = out["lanes"] = FLEET_GROUPS
+    out["activation"] = _activation_batches()
+    out["elect_all_s"] = round(t["sync_propose"] - t["start_clusters"], 3) if len(t) == 2 else None
+    return out
 
 
-def parse_exposition(text):
-    """tests/test_observability.py's minimal Prometheus text-format
-    parser: (types, samples of (name, labels, value, label keys)); fails on
-    a duplicate TYPE line, a comment or an unparseable sample."""
-    import re
-
-    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([^}]*)\})? (\S+)$")
-    types, samples = {}, []
-    for ln in text.splitlines():
-        if not ln:
-            continue
-        if ln.startswith("# TYPE "):
-            name, kind = ln[len("# TYPE "):].rsplit(" ", 1)
-            assert name not in types, f"duplicate # TYPE line for {name}"
-            types[name] = kind
-            continue
-        assert not ln.startswith("#"), f"unexpected comment line: {ln}"
-        m = sample.match(ln)
-        assert m, f"unparseable sample line: {ln}"
-        name, _, block, value = m.groups()
-        labels, keys = {}, []
-        for part in (block.split(",") if block else ()):
-            k, _, v = part.partition("=")
-            assert v.startswith('"') and v.endswith('"'), ln
-            labels[k] = v.strip('"')
-            keys.append(k)
-        samples.append((name, labels, value, keys))
-    return types, samples
-
-
-def exposition(nh):
-    import io
-
-    out = io.StringIO()
-    nh.write_health_metrics(out)
-    return out.getvalue()
-
-
-def gauge_verdicts(nh, min_elections, min_commits):
-    """The census, counter and history gauges of `nh` through
-    _export_health_gauges into its exposition, as
-    tests/test_observability.py asserts them (the census read from the
-    engine's device state; a history sampler started for it)."""
-    m = nh.metrics
-    nh._export_health_gauges()
-    g = lambda name: m.gauge_value(name, (0, 0))
-    history_zero = g("engine_history_samples_total") == 0.0
-    nh.start_history(interval_s=0.02)
-    try:
-        _wait_for(lambda: nh._history.stats()["samples_total"] >= 2, 30,
-                  lambda: "the history sampler took no 2 samples")
-        nh._export_health_gauges()
-    finally:
-        nh.stop_history()
-    text = exposition(nh)
-    types, _ = parse_exposition("\n".join(
-        ln for ln in text.splitlines() if "_hbm_" in ln or "_counter_" in ln or "_history_" in ln))
-    census = {k: g("engine_" + k) for k in ("hbm_bytes_total", "hbm_log_bytes",
-                                            "hbm_log_fill_p50", "hbm_log_fill_p99",
-                                            "hbm_waste_ratio")}
-    counters = {k: g("engine_counter_" + k) for k in ("elections_won", "commit_advances")}
-    history = {k: g("engine_history_" + k) for k in ("samples_total", "errors_total",
-                                                     "interval_seconds")}
-    verdicts = {
-        "census_gauges": (census["hbm_bytes_total"] > 0 and census["hbm_log_bytes"] > 0
-                          and census["hbm_log_fill_p50"] > 0 and census["hbm_log_fill_p99"] > 0
-                          and 0.0 <= census["hbm_waste_ratio"] < 1.0),
-        "counter_gauges": (counters["elections_won"] >= min_elections
-                           and counters["commit_advances"] >= min_commits),
-        "history_gauges": (history_zero and history["samples_total"] >= 2
-                           and history["errors_total"] == 0 and history["interval_seconds"] > 0),
-        "gauges_in_exposition": all(f"dragonboat_tpu_engine_{n}" in text for n in (
-            "hbm_bytes_total", "counter_heartbeats_sent", "history_samples_total")) and all(
-            types.get(f"dragonboat_tpu_engine_{n}") == "gauge" for n in (
-                "hbm_waste_ratio", "counter_elections_started", "history_samples_total"))}
-    return verdicts, {"census": census, "counters": counters, "history": history}
-
-
-def scen_bulk_shared(workdir, device, groups=SCEN_GROUPS):
+def scen_bulk_shared(workdir, device, groups):
     """(f) at config 2's width: `groups` groups x 3 replicas on one shared
-    core (phase 11's host and group shapes), each of the 3 hosts calling
-    start_clusters once; every group elected within 120 s, a proposal
-    commits. Then (g)'s gauges on that core: the census (read from the
-    card), counter and history gauges of host 1 in its exposition."""
+    core (phase 11's host and group shapes, metrics on), each of the 3
+    hosts calling start_clusters once, every group elected within 120 s.
+    Then tests/test_observability.py's census-and-counter and history-gauge
+    bodies on that core (the census read from the engine's device): the
+    hosts take the observability fixture's addresses (obs<n>:1), which the
+    history body reads back."""
     from dragonboat_tpu_torch.engine import vector
     from dragonboat_tpu_torch.transport.loopback import _Registry
 
-    tag = "bulk-"
+    O = _reference("test_observability", device)
     reg, kv = _Registry(), _kv_sm()
-    addrs = {n: f"{tag}{n}:1" for n in (1, 2, 3)}
+    addrs = {n: f"obs{n}:1" for n in (1, 2, 3)}
     hosts = {}
     try:
         for n in (1, 2, 3):
-            hosts[n] = _scen_host(tag, n, reg, workdir, groups, device, enable_metrics=True)
+            hosts[n] = _scen_host("obs", n, reg, workdir, groups, device, enable_metrics=True)
         vector.ACTIVATIONS.clear()
         t0 = time.monotonic()
         for n, nh in hosts.items():
@@ -3329,18 +3325,17 @@ def scen_bulk_shared(workdir, device, groups=SCEN_GROUPS):
                                for c in range(1, groups + 1)])
         start_s = time.monotonic() - t0
         elect_s, leaders = _elect_all(hosts[1], groups, FLEET_ELECT_S - start_s)
-        c = groups // 2 or 1
-        ld = hosts[leaders[c]] if c in leaders else hosts[1]
-        r = ld.sync_propose(ld.get_noop_session(c), b"k=v", 15.0)
-        verdicts = {"every_group_elected": len(leaders) == groups,
-                    "proposal_committed": r.value == 1}
-        gauges, seen = gauge_verdicts(hosts[1], 1, 1)
-        verdicts.update(gauges)
-        verdicts["census_from_engine_device"] = (
-            hosts[1].engine.core.device.type == torch.device(device).type)
-        return {"groups": groups, "lanes": 3 * groups, "start_clusters_s": round(start_s, 3),
-                "elect_all_s": round(start_s + elect_s, 3), "activation": _activation_batches(),
-                "gauges": seen, "verdicts": verdicts}
+        out = {"groups": groups, "lanes": 3 * groups, "start_clusters_s": round(start_s, 3),
+               "elect_all_s": round(start_s + elect_s, 3), "activation": _activation_batches(),
+               "verdicts": {"every_group_elected": len(leaders) == groups,
+                            "census_from_engine_device": (hosts[1].engine.core.device.type
+                                                          == torch.device(device).type)}}
+        if 1 in leaders:
+            _held(out, "test_census_and_counter_gauges_in_exposition",
+                  O.test_census_and_counter_gauges_in_exposition, hosts[leaders[1]])
+        _held(out, "test_history_gauges_in_exposition", O.test_history_gauges_in_exposition,
+              hosts[1])
+        return out
     finally:
         for nh in hosts.values():
             nh.stop()
@@ -3348,493 +3343,160 @@ def scen_bulk_shared(workdir, device, groups=SCEN_GROUPS):
 
 def scen_bulk_restart(workdir, device):
     """tests/test_bring_up.py's test_bulk_start_matches_incremental: two
-    single-replica groups started in bulk elect and commit a proposal each;
-    the host stops and restarts them one by one through start_cluster,
-    whose bootstrap check must accept the bulk start's records, and reads
-    the replayed state back."""
-    from dragonboat_tpu_torch.config import Config
-    from dragonboat_tpu_torch.storage.logdb import ShardedLogDB
+    groups started in bulk commit a proposal each; restarted one by one
+    through start_cluster, whose bootstrap check must accept the bulk
+    start's records, they replay it."""
+    B = _reference("test_bring_up", device)
+    out = {"groups": 2, "lanes": 2, "verdicts": {}}
+    _held(out, "test_bulk_start_matches_incremental", B.test_bulk_start_matches_incremental,
+          pathlib.Path(workdir))
+    return out
 
-    Count = _count_sm()
-    cfg = lambda c: Config(node_id=1, cluster_id=c, election_rtt=20, heartbeat_rtt=2)
-    mk = lambda: _single_host("bu2", workdir, device, 10, 8)
-    nh = mk()
-    try:
-        nh.start_clusters([({1: "bu2:1"}, False, lambda c, n: Count(), cfg(c)) for c in (1, 2)])
-        _wait_for(lambda: all(nh.get_leader_id(c)[1] for c in (1, 2)), 60,
-                  lambda: "bulk restart: no leaders")
-        done = [nh.sync_propose(nh.get_noop_session(c), b"p", 15.0).value for c in (1, 2)]
-    finally:
-        nh.stop()
-    nh = mk()
-    try:
-        for c in (1, 2):
-            nh.start_cluster({1: "bu2:1"}, False, lambda cid, n: Count(), cfg(c))
-        reads = lambda: {c: nh.stale_read(c, None) for c in (1, 2)}
-        _wait_for(lambda: all(v >= 1 for v in reads().values()), 60,
-                  lambda: f"bulk restart: replayed reads {reads()}")
-        got = reads()
-    finally:
-        nh.stop()
-    db = ShardedLogDB(f"{workdir}/bu2/bu2-1/logdb")
-    try:
-        boots = {c: db.get_bootstrap_info(c, 1) for c in (1, 2)}
-    finally:
-        db.close()
-    return {"groups": 2, "lanes": 2, "reads_after_restart": got, "verdicts": {
-        "proposals_committed": done == [1, 1],
-        "restart_reads_replayed": got == {1: 1, 2: 1},
-        "bootstrap_records": all(b.addresses == {1: "bu2:1"} and not b.join
-                                 for b in boots.values())}}
+
+OBSERVABILITY_TESTS = ("test_e2e_latency_histograms_and_step_stats",
+                       "test_census_and_counter_gauges_in_exposition",
+                       "test_history_gauges_in_exposition")
 
 
 def scen_observability(workdir, device):
-    """tests/test_observability.py's single_host at its shape (8 lanes, W=64,
-    5 ms ticks, WAL-backed, every request sampled): 8 proposals and a read;
-    the commit, apply, read and fsync histograms, step_stats and the
-    engine_step_* gauges, a conformant exposition, then the census, counter
-    and history gauges, each as the reference's tests assert them."""
-    from dragonboat_tpu_torch.config import Config
-
-    nh = _single_host("obs1", workdir, device, 5, 8, profile_sample_ratio=1)
-    try:
-        nh.start_cluster({1: "obs1:1"}, False, lambda c, n: _kv_sm()(),
-                         Config(cluster_id=1, node_id=1, election_rtt=10, heartbeat_rtt=2))
-        _wait_for(lambda: nh.get_leader_id(1) == (1, True), 60, lambda: "observability: no leader")
-        sess = nh.get_noop_session(1)
-        for i in range(8):
-            nh.sync_propose(sess, f"k{i}=v".encode(), timeout_s=10.0)
-        read_ok = nh.read_index(1, 5.0).wait(10.0).completed
-        m = nh.metrics
-        h = lambda name, key=(1, 1): m.histogram(name, key)
-        commit, apply_, reads = (h("proposal_commit_latency_seconds"),
-                                 h("proposal_apply_latency_seconds"), h("readindex_latency_seconds"))
-        fsync = h("fsync_latency_seconds", (0, 0))
-        st = nh.engine.step_stats()
-        nh._export_health_gauges()
-        text = exposition(nh)
-        types, samples = parse_exposition("\n".join(
-            ln for ln in text.splitlines() if not ln.startswith("# TYPE dragonboat_tpu_transport_")
-            and not ln.startswith("dragonboat_tpu_transport_")))
-        counts = {n: (x.count if x is not None else 0) for n, x in (
-            ("commit", commit), ("apply", apply_), ("read", reads), ("fsync", fsync))}
-        verdicts = {
-            "read_completed": read_ok,
-            "histogram_counts": (counts["commit"] >= 8 and counts["apply"] >= 8
-                                 and counts["read"] >= 1 and counts["fsync"] > 0),
-            "commit_before_apply": commit.quantile(0.5) <= apply_.quantile(0.99) + 1e-6,
-            "commit_p99_bounded": 0 < commit.quantile(0.99) < 60.0,
-            "step_stats": (st["steps"] > 0 and st["lanes_commit_advanced"] > 0
-                           and st["entries_applied"] >= 8),
-            "step_gauges": m.gauge_value("engine_step_steps", (0, 0)) > 0,
-            "exposition_conformant": ("proposal_commit_latency_seconds_bucket" in text
-                                      and "fsync_latency_seconds_count" in text
-                                      and all(k == sorted(k) for _, _, _, k in samples))}
-        gauges, seen = gauge_verdicts(nh, 1, 4)
-        verdicts.update(gauges)
-        return {"groups": 1, "lanes": 8, "histogram_counts": counts, "gauges": seen,
-                "families": len(types), "verdicts": verdicts}
-    finally:
-        nh.stop()
+    """tests/test_observability.py's single_host fixture (8 lanes, W=64,
+    5 ms ticks, WAL-backed, every request sampled), set up anew for each
+    of its three engine tests: the commit, apply, read and fsync
+    histograms, step_stats and the engine_step_* gauges in a conformant
+    exposition; the census and counter gauges; the history gauges and the
+    history ring."""
+    O = _reference("test_observability", device)
+    out = {"groups": 1, "lanes": 8, "verdicts": {}}
+    for t in OBSERVABILITY_TESTS:
+        tmp = pathlib.Path(workdir, t)
+        tmp.mkdir()
+        _held(out, t, _with_fixture, O.single_host, tmp, getattr(O, t))
+    return out
 
 
 def scen_forensics(workdir, device):
     """tests/test_forensics.py's test_e2e_causal_chain_across_nodes_under_
-    partition at its shape: 3 hosts sharing one vector core (16 lanes each,
-    W=64, 5 ms ticks, every request traced), the seeded partition schedule
-    (FaultPlane seed 1789), heal, a proposal commits; the per-node dumps
-    merged by tools.timeline must hold one trace's propose_enqueue,
-    replicate_send, quorum_commit and proposal_applied in that order
-    across at least 2 nodes, and the timeline CLI renders that chain."""
-    import contextlib
-    import io
-    import os
-
-    from dragonboat_tpu_torch.config import Config, EngineConfig, NodeHostConfig
-    from dragonboat_tpu_torch.faults import FaultPlane, FaultSpec
-    from dragonboat_tpu_torch.nodehost import NodeHost
-    from dragonboat_tpu_torch.tools import timeline
+    partition: 3 hosts sharing one core (16 lanes each, W=64, 5 ms ticks,
+    every request traced), the seeded partition schedule (seed 1789),
+    heal, a proposal commits; one trace's propose_enqueue, replicate_send,
+    quorum_commit and proposal_applied in that order across at least 2
+    nodes in the merged dumps, rendered by the timeline CLI. The port's
+    flight recorder is emptied first, as the test suite's conftest does."""
     from dragonboat_tpu_torch.trace import flight_recorder
-    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
 
-    members = (1, 2, 3)
-    fp, reg, rec, kv = FaultPlane(CAUSAL_SEED, FaultSpec()), _Registry(), flight_recorder(), _kv_sm()
-    rec.reset()
-    hosts = {}
-
-    def leader(deadline_s):
-        deadline = time.monotonic() + deadline_s
-        while time.monotonic() < deadline:
-            for nid, nh in hosts.items():
-                if nh.get_leader_id(CAUSAL_CLUSTER) == (nid, True):
-                    return nid
-            time.sleep(0.02)
-        return None
-
-    try:
-        for nid in members:
-            hosts[nid] = NodeHost(NodeHostConfig(
-                deployment_id=31, rtt_millisecond=5, nodehost_dir=f"{workdir}/h{nid}",
-                raft_address=f"ca{nid}:1", raft_rpc_factory=lambda l: loopback_factory(l, reg),
-                engine=EngineConfig(kind="vector", max_groups=16, max_peers=4, log_window=64,
-                                    share_scope=f"chip-causal-{id(reg)}", profile_sample_ratio=1,
-                                    device=device)))
-            hosts[nid].start_cluster({h: f"ca{h}:1" for h in members}, False, lambda c, n: kv(),
-                                     Config(cluster_id=CAUSAL_CLUSTER, node_id=nid, election_rtt=20,
-                                            heartbeat_rtt=4, snapshot_entries=0))
-        assert leader(60.0) is not None, "forensics: no leader elected"
-        windows = []
-        for victim, window, idle in fp.partition_schedule(
-                "causal", members, total_s=1.2, min_window_s=0.1, max_window_s=0.3):
-            windows.append([victim, round(window, 4)])
-            hosts[victim].set_partitioned(True)
-            time.sleep(window)
-            hosts[victim].set_partitioned(False)
-            time.sleep(idle)
-        deadline, committed = time.monotonic() + 45, False
-        while not committed and time.monotonic() < deadline:
-            ld = leader(30.0)
-            if ld is None:
-                continue
-            try:
-                hosts[ld].sync_propose(hosts[ld].get_noop_session(CAUSAL_CLUSTER), b"causal=1",
-                                       timeout_s=5.0)
-                committed = True
-            except Exception:
-                time.sleep(0.1)
-        time.sleep(0.3)  # trailing ack and apply events land
-        events = rec.dump(cluster_id=CAUSAL_CLUSTER)
-        paths = []
-        for nid in members:
-            p = os.path.join(workdir, f"node{nid}.jsonl")
-            with open(p, "w") as f:
-                f.write(json.dumps({"event": "_meta", "mono_offset": rec.mono_offset,
-                                    "source": f"n{nid}"}) + "\n")
-                for e in events:
-                    if e.get("node") == nid:
-                        f.write(json.dumps(e, sort_keys=True) + "\n")
-            paths.append(p)
-        chains = timeline.causal_chains(timeline.merge_dumps(paths))
-        good = None
-        for tid, evs in chains.items():
-            stages = [e["event"] for e in evs]
-            if (all(s in stages for s in CAUSAL_STAGES) and len({e.get("node") for e in evs}) >= 2
-                    and [stages.index(s) for s in CAUSAL_STAGES] == sorted(
-                        stages.index(s) for s in CAUSAL_STAGES)):
-                good = tid
-                break
-        rendered = False
-        if good is not None:
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = timeline.main(paths + ["--chains", "--trace", hex(good)])
-            out = buf.getvalue()
-            rendered = (rc == 0 and f"trace {good:#x}" in out and "propose_enqueue" in out
-                        and "quorum_commit" in out)
-        return {"groups": 1, "lanes": 3, "partition_windows": windows, "chains": len(chains),
-                "verdicts": {"committed_after_heal": committed,
-                             "ordered_chain_across_nodes": good is not None,
-                             "timeline_renders_chain": rendered}}
-    finally:
-        for nh in hosts.values():
-            nh.stop()
+    F = _reference("test_forensics", device)
+    flight_recorder().reset()
+    out = {"groups": 1, "lanes": 3, "verdicts": {}}
+    _held(out, "test_e2e_causal_chain_across_nodes_under_partition",
+          F.test_e2e_causal_chain_across_nodes_under_partition, pathlib.Path(workdir))
+    return out
 
 
-def _scale_host(workdir, device, groups, quiesce):
-    """tests/test_vector_scale.py's host: `groups` single-replica groups
-    started one by one, 2 ms ticks, W=64."""
-    from dragonboat_tpu_torch.config import Config
-
-    Count = _count_sm()
-    nh = _single_host("scale", None, device, 2, groups)
-    for c in range(1, groups + 1):
-        nh.start_cluster({1: "scale:1"}, False, lambda cid, nid: Count(),
-                         Config(node_id=1, cluster_id=c, election_rtt=10, heartbeat_rtt=2,
-                                quiesce=quiesce))
-    return nh
+def scen_scale(workdir, device):
+    """tests/test_vector_scale.py's test_1024_lanes_elect_and_commit: 1,024
+    single-replica lanes (2 ms ticks) elect within 150 s and commit one
+    proposal each, all in flight."""
+    S = _reference("test_vector_scale", device)
+    out = {"groups": 1024, "lanes": 1024, "verdicts": {}}
+    _held(out, "test_1024_lanes_elect_and_commit", S.test_1024_lanes_elect_and_commit)
+    return out
 
 
-def scen_scale(workdir, device, groups=SCALE_GROUPS):
-    """tests/test_vector_scale.py's test_1024_lanes_elect_and_commit: every
-    lane elects within 150 s and commits one proposal, all in flight."""
-    nh = _scale_host(workdir, device, groups, False)
-    try:
-        elect_s, leaders = _elect_all(nh, groups, 150)
-        pending = [nh.propose(nh.get_noop_session(c), b"payload-16-byte", 30)
-                   for c in range(1, groups + 1)]
-        results = [rs.wait(30) for rs in pending]
-        done = sum(1 for r in results if r is not None and r.completed)
-        return {"groups": groups, "lanes": groups, "elect_all_s": round(elect_s, 3),
-                "verdicts": {"every_lane_elected": len(leaders) == groups,
-                             "every_lane_committed": done == groups}}
-    finally:
-        nh.stop()
-
-
-def scen_quiesce(workdir, device, groups=QUIESCE_GROUPS):
+def scen_quiesce(workdir, device):
     """tests/test_vector_scale.py's test_idle_quiesced_lanes_cost_no_host_work:
-    `groups` lanes with quiesce on commit a proposal each and freeze; over
-    an idle second the transport sees no traffic and no step runs (on the
-    card: 0 step_batch launches, the engine's skip of a fully-quiesced
-    fleet); a fresh proposal wakes its lane, steps again and commits."""
+    256 lanes with quiesce on commit a proposal each and freeze, the
+    transport sees no traffic over an idle second, a proposal wakes its
+    lane and commits. Also the step launches over that second (0: the
+    engine skips a fully-quiesced fleet) and after it, and the step that
+    wakes the lane kept, so that the kernel is held on quiesced lanes."""
     from dragonboat_tpu_torch.ops import cuda, kernel as K
 
+    S = _reference("test_vector_scale", device)
     steps = lambda: cuda.LAUNCHES["step_batch"] + K.REFERENCE_CALLS["step_batch"]
-    nh = _scale_host(workdir, device, groups, True)
-    eng = nh.engine
+    idle = []
+
+    class Clock(types.ModuleType):
+        """The copy's `time`: its one sleep of a second is the idle one."""
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        @staticmethod
+        def sleep(s):
+            before = steps()
+            time.sleep(s)
+            if s >= 1.0:
+                idle.append((before, steps()))
+                StepRecorder.active.pin("wake")
+
+    out = {"groups": 256, "lanes": 256, "verdicts": {}}
+    S.time = Clock("time")
     try:
-        _elect_all(nh, groups, 150)
-        for c in range(1, groups + 1):
-            nh.sync_propose(nh.get_noop_session(c), b"x", 10.0)
-        frozen = lambda: bool((eng._m_quiesced | ~eng._m_active).all())
-        _wait_for(frozen, 30, lambda: "quiesce: lanes never quiesced")
-        sent, before = dict(nh.transport.metrics()), steps()
-        time.sleep(1.0)
-        idle_steps, sent_after = steps() - before, dict(nh.transport.metrics())
-        r = nh.sync_propose(nh.get_noop_session(1), b"wake", 10.0)
-        woke = steps() - before - idle_steps
-        return {"groups": groups, "lanes": groups, "idle_second_steps": idle_steps,
-                "wake_steps": woke, "verdicts": {
-                    "transport_silent": sent == sent_after,
-                    "no_step_while_quiesced": idle_steps == 0,
-                    "wake_commits": r is not None and woke > 0,
-                    "woken_lane_active": not bool(eng._m_quiesced[nh._get_node(1)._vec_lane.g])}}
+        _held(out, "test_idle_quiesced_lanes_cost_no_host_work",
+              S.test_idle_quiesced_lanes_cost_no_host_work)
     finally:
-        nh.stop()
+        S.time = time
+    wake = [st for why, (st, *_) in StepRecorder.active.pinned if "wake" in why.split("+")]
+    out["idle_second_steps"] = [b - a for a, b in idle]
+    out["wake_steps"] = steps() - idle[-1][1] if idle else 0
+    out["wake_state_quiesced_lanes"] = int(wake[0].quiesced.sum()) if wake else 0
+    out["verdicts"].update({"no_step_in_idle_second": out["idle_second_steps"] == [0],
+                            "steps_after_wake": out["wake_steps"] > 0,
+                            "wake_state_quiesced": out["wake_state_quiesced_lanes"] > 0})
+    return out
 
 
-def _chaos_host(nid, reg, workdir, groups, device):
-    """tests/test_chaos_scale.py's host: every group a replica on each of 3
-    hosts sharing one core (W=128, inbox 4, 16 entries a message, 10 ms
-    ticks, snapshots every 200 entries)."""
-    from dragonboat_tpu_torch.config import Config, EngineConfig, NodeHostConfig
-    from dragonboat_tpu_torch.nodehost import NodeHost
-    from dragonboat_tpu_torch.transport.loopback import loopback_factory
-
-    kv = _kv_sm()
-    nh = NodeHost(NodeHostConfig(
-        deployment_id=4, rtt_millisecond=10, nodehost_dir=f"{workdir}/h{nid}",
-        raft_address=f"cs{nid}:1", raft_rpc_factory=lambda l: loopback_factory(l, reg),
-        engine=EngineConfig(kind="vector", max_groups=3 * groups, max_peers=4, log_window=128,
-                            inbox_depth=4, max_entries_per_msg=16,
-                            share_scope=f"chip-chaos-scale-{id(reg)}", device=device)))
-    nh.start_clusters([({h: f"cs{h}:1" for h in (1, 2, 3)}, False, lambda c, n: kv(),
-                        Config(cluster_id=c, node_id=nid, election_rtt=60, heartbeat_rtt=10,
-                               snapshot_entries=200, compaction_overhead=20))
-                       for c in range(1, groups + 1)])
-    return nh
-
-
-def scen_chaos_scale(workdir, device, groups=CHAOS_SCALE_GROUPS,
-                     faults_s=CHAOS_SCALE_FAULTS_S):
-    """tests/test_chaos_scale.py's test_chaos_at_vector_scale at `groups` x 3
-    lanes in one shared core: its fault spec and seed (FaultPlane 0xC0FFEE:
-    25% of co-hosted REPLICATE/REPLICATE_RESP dropped, host partitions,
-    NodeHost kills and restarts from their directories) for `faults_s` of
-    faults while two clients a sampled group record histories and a bulk
-    client loads every other group; heal, a final write on every group.
-    Verdicts (the reference's invariants): every group recovered, its
-    replicas at one applied index and one SM hash, the sampled histories
-    linearizable and their persisted logs obeying Log Matching below the
-    commit point."""
-    import random
-    import threading
-
-    from dragonboat_tpu_torch.faults import REPLICATION_TYPES, FaultPlane, FaultSpec
-    from dragonboat_tpu_torch.lincheck import HistoryRecorder, check_kv_history
-    from dragonboat_tpu_torch.tools.logdbcheck import check_logdb_consistency
-    from dragonboat_tpu_torch.transport.loopback import _Registry
-
-    members = (1, 2, 3)
-    sampled = tuple(c for c in CHAOS_SCALE_SAMPLED if c <= groups) or (1,)
-    fp = FaultPlane(CHAOS_SCALE_SEED, FaultSpec(drop=0.25, only_types=REPLICATION_TYPES))
-    reg = _Registry()
-    hosts = {nid: _chaos_host(nid, reg, workdir, groups, device) for nid in members}
-    stop = threading.Event()
-    threads = []
-    faults = {"partition": 0, "drop": 0, "restart": 0, "none": 0}
+def scen_chaos_scale(workdir, device, groups=None):
+    """tests/test_chaos_scale.py's test_chaos_at_vector_scale, at its 256
+    groups x 3 replicas on one shared core or at `groups` x 3 (its GROUPS
+    set on the copy): W=128, 10 ms ticks, seed 0xC0FFEE, 25 s of faults
+    (a quarter of co-hosted replication dropped, host partitions, NodeHost
+    kills and restarts from their directories) under sampled and bulk
+    clients, heal, a final write on every group; every group's replicas
+    at one applied index and SM hash, the sampled histories linearizable,
+    their persisted logs obeying Log Matching below the commit point."""
+    C = _reference("test_chaos_scale", device)
+    width = C.GROUPS
+    C.GROUPS = groups or width
+    out = {"groups": C.GROUPS, "lanes": 3 * C.GROUPS, "seed": hex(C.SEED), "verdicts": {}}
     try:
-        def leaders_of(hs):
-            for nh in hs.values():
-                if nh is not None:
-                    return _leaders(nh)
-            return {}
-
-        elect_s, _ = _elect_all(hosts[1], groups, 180)
-        elected = len(leaders_of(hosts))
-        assert elected == groups, f"chaos scale: {elected}/{groups} elected"
-        recorders = {c: HistoryRecorder() for c in sampled}
-        seqs = {c: [0] for c in sampled}
-        bulk_done = [0]
-
-        def sampled_client(client_id, c):
-            rec, rng = recorders[c], random.Random(client_id * 7919 + c)
-            while not stop.is_set():
-                live = {n: h for n, h in hosts.items() if h is not None}
-                nh = live.get(leaders_of(live).get(c))
-                if nh is None:
-                    time.sleep(0.05)
-                    continue
-                key = rng.choice(CHAOS_SCALE_KEYS)
-                if rng.random() < 0.6:
-                    seqs[c][0] += 1
-                    val = f"v{client_id}.{seqs[c][0]}"
-                    op = rec.invoke(client_id, ("put", key, val))
-                    try:
-                        nh.sync_propose(nh.get_noop_session(c), f"{key}={val}".encode(), 2.0)
-                        rec.complete(op, None)
-                    except Exception:
-                        rec.unknown(op)
-                else:
-                    op = rec.invoke(client_id, ("get", key))
-                    try:
-                        rec.complete(op, nh.sync_read(c, key, timeout_s=2.0))
-                    except Exception:
-                        rec.fail(op)
-                time.sleep(rng.random() * 0.02)
-
-        def bulk_client():
-            rng, inflight = random.Random(4242), {}
-            while not stop.is_set():
-                live = {n: h for n, h in hosts.items() if h is not None}
-                lmap, progressed = leaders_of(live), False
-                for c in range(1, groups + 1):
-                    if c in sampled or stop.is_set():
-                        continue
-                    h = inflight.get(c)
-                    if h is not None and not h.finished:
-                        continue
-                    if h is not None:
-                        bulk_done[0] += h.completed
-                    nh = live.get(lmap.get(c))
-                    if nh is None:
-                        continue
-                    k = rng.choice(CHAOS_SCALE_KEYS)
-                    try:
-                        inflight[c] = nh.propose_batch_async(
-                            nh.get_noop_session(c), [f"{k}=b{bulk_done[0]}".encode()] * 8, 10)
-                        progressed = True
-                    except Exception:
-                        pass
-                if not progressed:
-                    time.sleep(0.02)
-
-        threads = [threading.Thread(target=sampled_client, args=(i, c), daemon=True)
-                   for c in sampled for i in (0, 1)]
-        threads.append(threading.Thread(target=bulk_client, daemon=True))
-        for t in threads:
-            t.start()
-        core = hosts[1].engine.core
-        t_end = time.monotonic() + faults_s
-        while time.monotonic() < t_end:
-            fault = fp.choice("faultloop", "fault", ["partition", "drop", "restart", "none"])
-            victim = fp.choice("faultloop", "victim", members)
-            nh = hosts.get(victim)
-            if nh is None:
-                continue
-            faults[fault] += 1
-            if fault == "partition":
-                nh.set_partitioned(True)
-                time.sleep(fp.uniform("faultloop", "window", 0.4, 1.0))
-                if hosts.get(victim) is not None:
-                    hosts[victim].set_partitioned(False)
-            elif fault == "drop":
-                core.set_local_drop_hook(fp.message_hook("local:core"))
-                time.sleep(fp.uniform("faultloop", "window", 0.4, 1.0))
-                core.set_local_drop_hook(None)
-            elif fault == "restart":
-                hosts[victim] = None
-                nh.stop()
-                time.sleep(fp.uniform("faultloop", "window", 0.2, 0.5))
-                hosts[victim] = _chaos_host(victim, reg, workdir, groups, device)
-            else:
-                time.sleep(0.4)
-        # heal; clients run on fault-free until every sampled history is
-        # deep enough for a meaningful lincheck
-        core.set_local_drop_hook(None)
-        for nh in hosts.values():
-            nh.set_partitioned(False)
-        deadline = time.monotonic() + 45
-        while time.monotonic() < deadline and any(
-                len(recorders[c].history()) <= 12 for c in sampled):
-            time.sleep(0.5)
-        stop.set()
-        for t in threads:
-            t.join(timeout=10)
-        # a final write on every group forces commit-index convergence
-        deadline, remaining, handles = time.monotonic() + 120, set(range(1, groups + 1)), {}
-        while remaining and time.monotonic() < deadline:
-            lmap = leaders_of(hosts)
-            for c in list(remaining):
-                h = handles.get(c)
-                if h is not None:
-                    if not h.finished:
-                        continue
-                    if h.completed:
-                        remaining.discard(c)
-                        continue
-                nh = hosts.get(lmap.get(c))
-                if nh is None:
-                    continue
-                try:
-                    handles[c] = nh.propose_batch_async(nh.get_noop_session(c), [b"final=done"], 10)
-                except Exception:
-                    pass
-            time.sleep(0.05)
-        deadline, diverged = time.monotonic() + 90, set(range(1, groups + 1))
-        while diverged and time.monotonic() < deadline:
-            diverged = {c for c in diverged
-                        if len({hosts[n].get_applied_index(c) for n in members}) != 1}
-            if diverged:
-                time.sleep(0.1)
-        bad_hash = [c for c in range(1, groups + 1)
-                    if len({hosts[n].get_sm_hash(c) for n in members}) != 1]
-        depth = {c: len(recorders[c].history()) for c in sampled}
-        lin = {c: check_kv_history(recorders[c].history(), max_states=5_000_000) for c in sampled}
-        logs = {c: check_logdb_consistency({n: hosts[n].logdb for n in members}, c).ok
-                for c in sampled}
-        return {"groups": groups, "lanes": 3 * groups, "elect_all_s": round(elect_s, 3),
-                "faults_s": faults_s, "faults": faults, "history_ops": depth,
-                "bulk_batches_committed": bulk_done[0], "unrecovered": sorted(remaining)[:10],
-                "diverged": sorted(diverged)[:10], "hash_diverged": bad_hash[:10],
-                "verdicts": {"every_group_recovered": not remaining,
-                             "applied_converged": not diverged, "hashes_converged": not bad_hash,
-                             "histories_deep": all(d > 10 for d in depth.values()),
-                             "linearizable": all(lin.values()), "log_matching": all(logs.values()),
-                             "bulk_committed": bulk_done[0] > 0}}
+        _held(out, "test_chaos_at_vector_scale", C.test_chaos_at_vector_scale,
+              pathlib.Path(workdir))
     finally:
-        stop.set()
-        for t in threads:
-            t.join(timeout=10)
-        for nh in hosts.values():
-            if nh is not None:
-                nh.stop()
+        C.GROUPS = width
+    return out
 
 
 FLEET_SCENARIOS = (
-    ("bulk_fleet", lambda d, dev, g: scen_bulk_fleet(d, dev, g or FLEET_GROUPS)),
-    ("bulk_shared_3x", lambda d, dev, g: scen_bulk_shared(d, dev, g or SCEN_GROUPS)),
+    ("bulk_fleet", lambda d, dev, g: scen_bulk_fleet(d, dev)),
+    ("bulk_shared_3x", lambda d, dev, g: scen_bulk_shared(d, dev, g)),
     ("bulk_restart", lambda d, dev, g: scen_bulk_restart(d, dev)),
     ("observability", lambda d, dev, g: scen_observability(d, dev)),
     ("forensics", lambda d, dev, g: scen_forensics(d, dev)),
-    ("scale", lambda d, dev, g: scen_scale(d, dev, g or SCALE_GROUPS)),
-    ("quiesce", lambda d, dev, g: scen_quiesce(d, dev, g or QUIESCE_GROUPS)),
-    ("chaos_scale", lambda d, dev, g: scen_chaos_scale(d, dev, g or CHAOS_SCALE_GROUPS)),
-    ("chaos_scale_3x1024", lambda d, dev, g: scen_chaos_scale(d, dev, g or SCEN_GROUPS)),
+    ("scale", lambda d, dev, g: scen_scale(d, dev)),
+    ("quiesce", lambda d, dev, g: scen_quiesce(d, dev)),
+    ("chaos_scale", lambda d, dev, g: scen_chaos_scale(d, dev)),
+    ("chaos_scale_3x1024", lambda d, dev, g: scen_chaos_scale(d, dev, g)),
 )
 
 
-def phase_fleet(cuda, K, card, device="cuda", groups=None):
-    """Phase 12: the reference's last five engine-level test files' scenarios
-    through the port's NodeHost on `device` (FLEET_SCENARIOS, through
-    run_scenarios, each at its test's shape, (f) and (j) also at config 2's
-    width; `groups` overrides every width, to rehearse on the CPU): bulk
-    fleet bring-up and restart, observability, forensics, vector scale and
-    chaos at vector scale, the kernel held on bulk-activated, quiesced,
-    killed-and-restarted and partitioned lanes."""
+def phase_fleet(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
+    """Phase 12: the reference's last five engine-level test files' bodies
+    on the port's NodeHost on `device` (FLEET_SCENARIOS, through
+    run_scenarios, each at its test's shape; (f) and (j) also with
+    `groups` groups x 3 replicas, config 2's width by default): bulk fleet
+    bring-up and restart, observability, forensics, vector scale and chaos
+    at vector scale. The kernel is held on the steps each run recorded
+    and on those just after bulk starts, host stops and restarts,
+    partitions, drops and the wake from quiesce."""
     t_phase = time.perf_counter()
     log(f"phase 12 card: {card}")
-    out = run_scenarios(cuda, K, card, FLEET_SCENARIOS, 1200, device, groups)
+    before = set(sys.modules)
+    with pinned_faults():
+        out = run_scenarios(cuda, K, card, FLEET_SCENARIOS, 1200, device, groups)
+    bad = sorted(m for m in set(sys.modules) - before
+                 if m.split(".")[0] in ("jax", "dragonboat_tpu"))
+    assert not bad, f"phase 12 imported {bad[:5]}"
     out["seconds"] = round(time.perf_counter() - t_phase, 2)
     return out
 
@@ -4025,7 +3687,7 @@ def main() -> int:
     fleet_names = [n for n, _ in FLEET_SCENARIOS]
     log(f"fleet: {len(fleet_names)} scenarios ("
         + ", ".join(f"{n} {fleet[n]['seconds']} s" for n in fleet_names)
-        + f"), bulk fleet of {fleet['bulk_fleet']['groups']} groups elected in "
+        + f"), bulk fleet of {fleet['bulk_fleet']['lanes']} groups elected in "
         f"{fleet['bulk_fleet']['elect_all_s']} s, phase {fleet['seconds']} s [{card}]")
 
     # the step kernel against its plain version at the shapes the engine

@@ -69,6 +69,20 @@ def test_helper_module_and_loopback_bound_to_the_cpu():
     assert inspect.signature(ns["LoopbackCluster"]).parameters["device"].default == "cpu"
 
 
+def test_a_copy_bound_to_the_card_is_a_module_of_its_own():
+    # chip_smoke.py phase 12 runs the reference bodies through such copies
+    cpu, card = port_copy("test_observability"), port_copy("test_observability", "cuda")
+    assert card is not cpu and card.__name__ == "test_observability" + SUFFIX + "_cuda"
+    ns = _imports(card, "from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig\n"
+                        "out = EngineConfig(), NodeHostConfig()")
+    assert [c.device for c in (ns["out"][0], ns["out"][1].engine)] == ["cuda", "cuda"]
+    assert sys.modules["test_nodehost" + SUFFIX + "_cuda"].EngineConfig().device == "cuda"
+    assert cpu.single_host is not card.single_host
+    ns = _imports(cpu, "from dragonboat_tpu_torch.config import EngineConfig\nout = EngineConfig()")
+    assert ns["out"].device == "cpu"
+    assert port_defaults() == ("cuda", "cuda", "cuda")
+
+
 def port_defaults():
     """The port's own defaults, which no copy may change."""
     return (config.EngineConfig().device, config.NodeHostConfig().engine.device,
@@ -112,7 +126,7 @@ def _bound_origins(mod):
 @pytest.mark.parametrize("name", TWINNED)
 def test_copy_binds_nothing_of_the_reference(name):
     port_copy(name)
-    copies = [m for n, m in list(sys.modules.items()) if n.endswith(SUFFIX)]
+    copies = [m for n, m in list(sys.modules.items()) if SUFFIX in n]
     assert sys.modules[name + SUFFIX] in copies
     for mod in copies:
         bad = {o for o in _bound_origins(mod)

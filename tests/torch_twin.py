@@ -7,17 +7,19 @@ classes and seeds, bound to the port's NodeHost, engines, LoopbackCluster
 and scalar core. The port path imports nothing of the JAX package. A
 `from tests.<m> import ...` in the reference loads `<m>` the same way.
 
-The copy's engines run on the CPU (the port's own default is the card).
-Every import statement the copy executes, at module level or inside a
-function or fixture, goes through the copy's own `__import__`
-(`_copy_import`, installed as the copy's `__builtins__`): it hands out
-`EngineConfig`, `NodeHostConfig` (whose default engine is then a CPU one)
-and `LoopbackCluster` defaulting to `device="cpu"`, and resolves
-`import bench` (the reference's benchmark, a JAX program) to the port's
-counterpart `dragonboat_tpu_torch.e2e`, so a name that e2e lacks raises.
-Nothing outside the copy changes: the port's modules keep their own
-defaults. Source that a copy writes out for a child process runs the
-port as it is.
+The copy's engines run on the CPU (the port's own default is the card),
+or on the `device` that `port_copy` is given: chip_smoke.py runs the
+same bodies on the card as `test_x_on_port_cuda`. Every import statement
+the copy executes, at module level or inside a function or fixture,
+goes through the copy's own `__import__` (`_copy_import`, installed as
+the copy's `__builtins__`): it hands out `EngineConfig`, `NodeHostConfig`
+(whose default engine is then one on that device) and `LoopbackCluster`
+defaulting to that device, and resolves `import bench` (the reference's
+benchmark, a JAX program) to the port's counterpart
+`dragonboat_tpu_torch.e2e`, so a name that e2e lacks raises. Nothing
+outside the copy changes: the port's modules keep their own defaults.
+Source that a copy writes out for a child process runs the port as it
+is.
 
 `reference_tests(mod)` is what a twin file exports so that pytest collects
 the copy's tests (with their marks and parametrisations) and fixtures under
@@ -52,7 +54,7 @@ SUFFIX = "_on_port"
 BENCH = "dragonboat_tpu_torch.e2e"
 
 
-def _cpu_module(real, names):
+def _bound_module(real, names):
     """`real` with `names` in place of its own attributes."""
     m = types.ModuleType(real.__name__, real.__doc__)
     vars(m).update(names, __getattr__=lambda n: getattr(real, n))
@@ -60,14 +62,14 @@ def _cpu_module(real, names):
 
 
 @functools.cache
-def _cpu_modules() -> dict:
+def _bound_modules(device: str) -> dict:
     """The modules a copy imports its engine constructors from, each with
-    the constructors defaulting to the CPU."""
+    the constructors defaulting to `device`."""
     C = importlib.import_module("dragonboat_tpu_torch.config")
     L = importlib.import_module("dragonboat_tpu_torch.ops.loopback")
 
     def EngineConfig(*args, **kw):
-        kw.setdefault("device", "cpu")
+        kw.setdefault("device", device)
         return C.EngineConfig(*args, **kw)
 
     def NodeHostConfig(*args, **kw):
@@ -76,50 +78,53 @@ def _cpu_modules() -> dict:
         return C.NodeHostConfig(*args, **kw)
 
     class LoopbackCluster(L.LoopbackCluster):
-        def __init__(self, *args, device="cpu", **kw):
+        def __init__(self, *args, device=device, **kw):
             super().__init__(*args, device=device, **kw)
 
-    return {C.__name__: _cpu_module(C, {"EngineConfig": EngineConfig,
-                                        "NodeHostConfig": NodeHostConfig}),
-            L.__name__: _cpu_module(L, {"LoopbackCluster": LoopbackCluster})}
+    return {C.__name__: _bound_module(C, {"EngineConfig": EngineConfig,
+                                          "NodeHostConfig": NodeHostConfig}),
+            L.__name__: _bound_module(L, {"LoopbackCluster": LoopbackCluster})}
 
 
-def _copy_import(name, globals=None, locals=None, fromlist=(), level=0):
-    """A copy's `__import__`: the CPU-bound constructors and the port's
-    bench; every other import as usual."""
+def _copy_import(name, globals=None, locals=None, fromlist=(), level=0, *, device="cpu"):
+    """A copy's `__import__`: the constructors bound to `device` and the
+    port's bench; every other import as usual."""
     if level == 0 and name == "bench":
         return importlib.import_module(BENCH)
     mod = __import__(name, globals, locals, fromlist, level)
     if level == 0 and fromlist:
-        return _cpu_modules().get(name, mod)
+        return _bound_modules(device).get(name, mod)
     return mod
 
 
-def _copy_builtins() -> dict:
-    return dict(vars(builtins), __import__=_copy_import)
+def _suffix(device: str) -> str:
+    return SUFFIX if device == "cpu" else f"{SUFFIX}_{device}"
 
 
-def port_source(name: str) -> str:
+def port_source(name: str, device: str = "cpu") -> str:
     with open(os.path.join(TESTS, name + ".py")) as f:
         src = f.read()
     for dep in set(_TESTS_IMPORT.findall(src)):
-        port_copy(dep[1])
-    src = _TESTS_IMPORT.sub(lambda m: f"{m.group(1)}from {m.group(2)}{SUFFIX} import", src)
+        port_copy(dep[1], device)
+    suffix = _suffix(device)
+    src = _TESTS_IMPORT.sub(lambda m: f"{m.group(1)}from {m.group(2)}{suffix} import", src)
     return _REF_NAME.sub("dragonboat_tpu_torch", src)
 
 
-def port_copy(name: str) -> types.ModuleType:
-    """tests/<name>.py bound to the port (one module per process)."""
-    mod_name = name + SUFFIX
+def port_copy(name: str, device: str = "cpu") -> types.ModuleType:
+    """tests/<name>.py bound to the port, its engines on `device` (one
+    module per process and device)."""
+    mod_name = name + _suffix(device)
     if mod_name in sys.modules:
         return sys.modules[mod_name]
     path = os.path.join(TESTS, name + ".py")
     mod = types.ModuleType(mod_name, None)
     mod.__file__ = path
-    mod.__builtins__ = _copy_builtins()
+    mod.__builtins__ = dict(vars(builtins),
+                            __import__=functools.partial(_copy_import, device=device))
     sys.modules[mod_name] = mod
     try:
-        exec(compile(port_source(name), path, "exec"), vars(mod))
+        exec(compile(port_source(name, device), path, "exec"), vars(mod))
     except BaseException:
         del sys.modules[mod_name]
         raise
