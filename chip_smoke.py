@@ -83,12 +83,23 @@ observability host under its three engine tests; a causal trace chain
 across 3 hosts under a seeded partition schedule, rendered by
 tools.timeline; 1,024 lanes electing and committing, and 256 quiesced
 lanes, over whose idle second no step launches; chaos at vector scale
-(drops, partitions, NodeHost kills and restarts) at 256 x 3 and 1,024 x 3
-lanes, every group converged, linearizable and obeying Log Matching. It
-also brings 1,024 groups x 3 replicas up on one core and runs the
+(drops, partitions, NodeHost kills and restarts) at 1,024 x 3 lanes,
+every group converged, linearizable and obeying Log Matching. It also
+brings 1,024 groups x 3 replicas up on one core and runs the
 observability census and history bodies there, and holds the step
 kernel on the steps just after bulk starts, stops, restarts, partitions,
-drops and the wake from quiesce as well.
+drops and the wake from quiesce as well. Phase 13 runs the vector
+engine's follower catch-up on the card: 32 groups of 1,024 x 3 on one
+shared K=8 core each add a replica on a fourth host that joins as an
+empty member and is caught up from its leader's host log (ROADMAP §3
+fault 1), and the retry storm of fault 6; then the reference bodies of
+the last eleven test files that drive the vector engine (restarts, 50
+lane restarts with no growth of the card's allocated memory, batched
+proposals, snapshot requests and external files, compression, the rate
+limiter, SQLite storage, chaos, the tick clamp and starvation gauges,
+health metrics, full-width ReadIndex contexts). The kernels are also
+held on the super-steps just after each joiner's first reject and each
+host-log catch-up start.
 After
 each K=1 engine run of phases 5-9 the step kernel is held against its
 plain version on states that run stepped, at its own lanes, window and
@@ -966,10 +977,11 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 # ------------------------------------------- phase 5: the engine on the card
 
 # BASELINE configs through NodeHost (bench.py:1124-1182): 2 and 6 at full
-# width and a 10 s window; then 1 (one group) and 8 (1024 groups) at full
-# width, and 3, 4 and 5 at 1024 groups x 5 replicas (5120 lanes, nominally
-# 10,000 and 50,000 groups: stamped scaled_down); last 7 (64 groups x 3,
-# through the serving fronts) at full width and its 8 s window. The load
+# width; then 1 (one group) and 8 (1024 groups) at full width, and 3, 4 and
+# 5 at 1024 groups x 5 replicas (5120 lanes, nominally 10,000 and 50,000
+# groups: stamped scaled_down); last 7 (64 groups x 3, through the serving
+# fronts) at full width. Windows are cut from bench.py's 10 s (configs 2
+# and 6) and 8 s (7) to keep the script within its time. The load
 # runs through a 2 s warm-up (and until every group has a wave in flight), so each
 # window opens on waves in flight. The new configs take 4 s windows; a
 # wave through 5120 lanes lands 6-16 s after it is sent (about one engine
@@ -977,7 +989,7 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 # group committed a wave inside it (e2e.bench_e2e)
 E2E_CONFIGS = (2, 6, 1, 3, 4, 5, 8, 7)
 E2E_GROUPS = {3: 1024, 4: 1024, 5: 1024}
-E2E_WINDOW_S = {1: 4.0, 3: 4.0, 4: 4.0, 5: 4.0, 8: 4.0}
+E2E_WINDOW_S = {1: 4.0, 2: 5.0, 3: 4.0, 4: 4.0, 5: 4.0, 6: 5.0, 7: 4.0, 8: 4.0}
 # the kernels each config's engine path must launch
 E2E_KERNELS = {1: ("step_batch",),
                8: ("step_batch", "route_columns", "route_index", "route_scatter")}
@@ -1721,14 +1733,33 @@ class SuperstepRecorder:
     stream) as StepRecorder keeps the step's: clones on the engine's
     stream, one call in 4, halved when 6 are held. For holding the kernel
     super-step (step and router kernels, and the gather when sharded)
-    against the plain one afterwards at the shape the engine ran."""
+    against the plain one afterwards at the shape the engine ran.
+    `pin(why)` also keeps the next unsharded super-step in `pinned`, as
+    StepRecorder.pin does. The recorder entered last is
+    `SuperstepRecorder.active`."""
+
+    active = None
+    PIN_CAP = 2
 
     def __init__(self, K):
         self.K, self.keep, self.every, self.calls = K, 3, 4, 0
         self.kept, self.kept_sharded = [], []
+        self.pinned, self.pending, self.pins = [], set(), {}
+
+    pin = StepRecorder.pin
+
+    @property
+    def states(self):
+        """(why, copy) of every unsharded super-step kept."""
+        return [("stride", k) for k in self.kept] + self.pinned
 
     def _record(self, kept, copy):
         self.calls += 1
+        if self.pending and kept is self.kept:
+            whys, self.pending = self.pending, set()
+            for w in whys:
+                self.pins[w] = self.pins.get(w, 0) + 1
+            self.pinned.append(("+".join(sorted(whys)), copy()))
         if self.calls % self.every == 0:
             kept.append(copy())
             if len(kept) == 2 * self.keep:
@@ -1776,30 +1807,35 @@ class SuperstepRecorder:
             return sharded
 
         vector.make_multi_step_fn, vector.make_sharded_multi_step_fn = make, make_sharded
+        SuperstepRecorder.active = self
         return self
 
     def __exit__(self, *exc):
         self._vector.make_multi_step_fn, self._vector.make_sharded_multi_step_fn = self._inner
+        SuperstepRecorder.active = None
         return False
 
 
 def compare_superstep_recorded(K, rec):
     """The kernel super-step against the plain one on every copy `rec`
-    kept, every field of the state, the stacked outputs and plans, the
-    residual and its count. Fails on any mismatch."""
-    assert rec.kept, "the engine's super-step was never recorded"
+    kept (the stride and the pinned ones), every field of the state, the
+    stacked outputs and plans, the residual and its count. Fails on any
+    mismatch."""
+    states = rec.states
+    assert states, "the engine's super-step was never recorded"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     clone, bad = K.clone_state, set()
-    for s, ib, ticks, resid, route, rdelta, cfg, steps in rec.kept:
+    for _why, (s, ib, ticks, resid, route, rdelta, cfg, steps) in states:
         res_k = K.multi_step_batch(clone(s), ib, ticks, clone(resid), route, rdelta, cfg, steps)
         res_p = K.multi_step_batch_reference(clone(s), ib, ticks, clone(resid), route, rdelta,
                                              cfg, steps)
         torch.cuda.synchronize()
         bad |= set(superstep_mismatches(res_k, res_p))
-    cfg, steps = rec.kept[-1][6:]
+    cfg, steps = states[-1][1][6:]
     out = {"lanes": cfg.groups, "peers": cfg.peers, "log_window": cfg.log_window,
-           "inbox_depth": cfg.inbox_depth, "steps": steps, "cases": len(rec.kept),
+           "inbox_depth": cfg.inbox_depth, "steps": steps, "cases": len(states),
+           "states": [why for why, _ in states],
            "mismatched_fields": sorted(bad), "max_abs_err": 0 if not bad else None,
            "seconds": round(time.perf_counter() - t0, 2)}
     assert not bad, f"kernel super-step disagrees with the plain one: {out}"
@@ -1928,11 +1964,11 @@ def phase_longhaul(cuda, K, device="cuda", rounds=LONGHAUL_ROUNDS):
 
 # config 2's width: 3 hosts x 1024 groups on one core, K=1, 10 ms ticks
 NATIVE_GROUPS = 1024
-NATIVE_LOAD_S = 4.0
+NATIVE_LOAD_S = 2.0
 NATIVE_WAVE = 128
 
 
-def _native_lincheck(hosts, leaders, snap_fn, groups=8, clients=3, ops=24, seed=9):
+def _native_lincheck(hosts, leaders, snap_fn, groups=8, clients=3, ops=8, seed=9):
     """e2e.lincheck_run's clients for the C++ KV plugin: `key=value`
     puts and byte-key reads of the first `groups` groups."""
     import random
@@ -2256,7 +2292,9 @@ def phase_native(cuda, K, device="cuda", groups=NATIVE_GROUPS, load_s=NATIVE_LOA
 # one-card machine all of them on cuda:0 (logical shards). The kernel-level
 # lockstep runs config 6's shape (3,072 lanes) and BASELINE's scale (50,000
 # lanes: 12,500 groups x 4 replicas, 12,500 lanes a shard); the engine runs
-# configs 6 and 2 through NodeHost with shard_over_mesh
+# configs 6 and 2 through NodeHost with shard_over_mesh, each over a 4 s
+# window (bench.py's 10 s, cut to keep the script within its time)
+MESH_ENGINE_S = 4.0
 MESH_SHARDS = 4
 MESH_WINDOWS = 4
 MESH_BIG = (12500, 4)
@@ -2500,7 +2538,7 @@ def phase_mesh(cuda, K, kb, card):
             run["lockstep_50k"]["gather"] = gather_at_scale(K, kb, bcfg, devices,
                                                             run["lockstep_50k"]["sharded"])
         for config in MESH_CONFIGS if name == "logical" else MESH_CONFIGS[:1]:
-            r, launches = phase_mesh_engine(cuda, K, config, devices)
+            r, launches = phase_mesh_engine(cuda, K, config, devices, duration=MESH_ENGINE_S)
             run[f"config{config}"] = r
         out["runs"][name] = run
     out["seconds"] = round(time.perf_counter() - t_phase, 2)
@@ -3110,7 +3148,7 @@ def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
             if rec.states:
                 r["kernel_vs_plain"] = compare_recorded(K, cuda, rec, seed + i)
                 compared.append(r["kernel_vs_plain"])
-            if srec.kept:
+            if srec.states:
                 assert r["launches"]["route_scatter"] > 0, f"{name}: the router never launched"
                 r["superstep_vs_plain"] = compare_superstep_recorded(K, srec)
                 compared.append(r["superstep_vs_plain"])
@@ -3119,7 +3157,8 @@ def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
             "scenario": name, "seconds": r["seconds"], "verdicts": r["verdicts"],
             "compared_cases": sum(c["cases"] for c in compared),
             "mismatched_fields": sorted({f for c in compared for f in c["mismatched_fields"]}),
-            "compared_states": [s for c in compared for s in c.get("active_quiesced_lanes", ())],
+            "compared_states": [s for c in compared
+                                for s in c.get("active_quiesced_lanes", c.get("states", ()))],
             "card": card, **{k: v for k, v in r.items() if k not in (
                 "seconds", "verdicts", "kernel_vs_plain", "superstep_vs_plain")}},
             default=str))
@@ -3155,22 +3194,28 @@ def phase_scenarios(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
 # Each scenario runs the reference test's own body: tests/<file>.py copied
 # onto the port by tests/torch_twin.py with its engines on the card, at
 # the test's shapes, ticks, timeouts and seeds; a body whose assertions
-# hold is a true verdict. (f) and (j) also run at config 2's width (1,024
-# groups x 3 replicas on one core).
+# hold is a true verdict. (f) also runs, and (j) runs only, at config 2's
+# width (1,024 groups x 3 replicas on one core).
 FLEET_ELECT_S = 120  # tests/test_bring_up.py's bound on electing every group
 FLEET_GROUPS = 2048  # test_bulk_fleet_bring_up's fleet
 
 
-def _reference(name, device):
-    """tests/<name>.py's copy on the port, its engines on `device`."""
+def _tests_module(name):
+    """tests/<name>.py, imported from the end of sys.path: the card's
+    Python has a `tests` package of its own, so `tests.<name>` does not
+    resolve there."""
+    import importlib
     import os
 
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.append(tests)
-    from torch_twin import port_copy
+    return importlib.import_module(name)
 
-    return port_copy(name, device)
+
+def _reference(name, device):
+    """tests/<name>.py's copy on the port, its engines on `device`."""
+    return _tests_module("torch_twin").port_copy(name, device)
 
 
 def _held(out, test, fn, *args):
@@ -3217,15 +3262,16 @@ def _first_call(got, name):
 
 
 def _pin_after(why):
-    """A wrap for _patched: after each call, the active StepRecorder keeps
-    the next engine step, under the reason why(self, *args) if there is
-    one."""
+    """A wrap for _patched: after each call, the active StepRecorder and
+    SuperstepRecorder keep the next engine step or super-step, under the
+    reason why(self, *args) if there is one."""
     def wrap(f):
         def call(self, *a, **kw):
             r = f(self, *a, **kw)
-            w, rec = why(self, *a, **kw), StepRecorder.active
-            if w and rec is not None:
-                rec.pin(w)
+            w = why(self, *a, **kw)
+            for rec in (StepRecorder.active, SuperstepRecorder.active):
+                if w and rec is not None:
+                    rec.pin(w)
             return r
         return call
     return wrap
@@ -3447,17 +3493,18 @@ def scen_quiesce(workdir, device):
 
 
 def scen_chaos_scale(workdir, device, groups=None):
-    """tests/test_chaos_scale.py's test_chaos_at_vector_scale, at its 256
-    groups x 3 replicas on one shared core or at `groups` x 3 (its GROUPS
-    set on the copy): W=128, 10 ms ticks, seed 0xC0FFEE, 25 s of faults
-    (a quarter of co-hosted replication dropped, host partitions, NodeHost
-    kills and restarts from their directories) under sampled and bulk
-    clients, heal, a final write on every group; every group's replicas
+    """tests/test_chaos_scale.py's test_chaos_at_vector_scale at `groups`
+    groups x 3 replicas on one shared core (its GROUPS set on the copy),
+    and at no fewer than its own 256 x 3: W=128, 10 ms ticks, seed
+    0xC0FFEE, 25 s of faults (a quarter of co-hosted replication dropped,
+    host partitions, NodeHost kills and restarts from their directories)
+    under sampled and bulk clients, heal, a final write on every group;
+    every group's replicas
     at one applied index and SM hash, the sampled histories linearizable,
     their persisted logs obeying Log Matching below the commit point."""
     C = _reference("test_chaos_scale", device)
     width = C.GROUPS
-    C.GROUPS = groups or width
+    C.GROUPS = max(groups or 0, width)
     out = {"groups": C.GROUPS, "lanes": 3 * C.GROUPS, "seed": hex(C.SEED), "verdicts": {}}
     try:
         _held(out, "test_chaos_at_vector_scale", C.test_chaos_at_vector_scale,
@@ -3475,15 +3522,14 @@ FLEET_SCENARIOS = (
     ("forensics", lambda d, dev, g: scen_forensics(d, dev)),
     ("scale", lambda d, dev, g: scen_scale(d, dev)),
     ("quiesce", lambda d, dev, g: scen_quiesce(d, dev)),
-    ("chaos_scale", lambda d, dev, g: scen_chaos_scale(d, dev)),
-    ("chaos_scale_3x1024", lambda d, dev, g: scen_chaos_scale(d, dev, g)),
+    ("chaos_scale", lambda d, dev, g: scen_chaos_scale(d, dev, g)),
 )
 
 
 def phase_fleet(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
     """Phase 12: the reference's last five engine-level test files' bodies
     on the port's NodeHost on `device` (FLEET_SCENARIOS, through
-    run_scenarios, each at its test's shape; (f) and (j) also with
+    run_scenarios, each at its test's shape; (f) also, and (j) only, with
     `groups` groups x 3 replicas, config 2's width by default): bulk fleet
     bring-up and restart, observability, forensics, vector scale and chaos
     at vector scale. The kernel is held on the steps each run recorded
@@ -3501,6 +3547,217 @@ def phase_fleet(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
     return out
 
 
+# ------- phase 13: the follower catch-up and the last eleven test files
+
+# Fault 1 at config 6's width: of 1,024 groups x 3 replicas on one shared
+# K=8 core, CATCHUP_JOINS first commit CATCHUP_PRE entries (past the
+# 256-entry window, so the joiner is caught up from the host log) and then
+# add a replica on a fourth host of the core, which joins as an empty member
+CATCHUP_JOINS = 32
+CATCHUP_PRE = 300
+CATCHUP_JOINER = 4  # the joiners' node id (tests/torch_catchup.py)
+CATCHUP_PIN_CAP = 8  # states kept after each kind of catch-up event
+
+# tests/<file>.py and its bodies that drive the vector engine, NodeHost or
+# LoopbackCluster: (test, its parameters after tmp_path)
+CATCHUP_FILES = (
+    ("restart", "test_restart", (
+        ("test_stop_restart_cluster_rejoins_live_group", "vector"),
+        ("test_crash_restart_with_snapshot_install", "vector"),
+        ("test_crash_restart_cycles_every_node", "vector"),
+        ("test_vector_lane_reuse_50_restarts_no_growth",),
+        ("test_quorum_throughput_and_fairness_while_peer_down",))),
+    ("propose_batch", "test_propose_batch", (
+        ("test_propose_batch_commits_in_order", "vector"),
+        ("test_propose_batch_async_handle", "vector"))),
+    ("snapshotstate", "test_snapshotstate", (
+        ("test_duplicate_snapshot_request_ignored", "vector"),)),
+    ("snapshot_files", "test_snapshot_files", (
+        ("test_external_files_transfer_on_install",),
+        ("test_external_files_survive_local_restart",))),
+    ("compression", "test_compression", (
+        ("test_e2e_compressed_propose_apply_and_restart",),)),
+    ("rate_limit", "test_rate_limit", (("test_nodehost_rate_limit_e2e", "vector"),)),
+    ("storage", "test_storage", (("test_nodehost_on_sqlite_backend_restart",),)),
+    ("chaos", "test_chaos", (("test_chaos_linearizable_and_converged", "vector"),)),
+    # the LoopbackCluster body steps no engine: it runs beside two that do
+    ("fairness_events_reads", ("test_fairness", "test_events", "test_readindex_tracker"), (
+        ("test_tick_burst_clamp_preserves_election_spread",),
+        ("test_nodehost_exports_starvation_gauges",),
+        ("test_nodehost_health_metrics_end_to_end",),
+        ("test_full_width_ctx_no_collision_kernel",))),
+)
+
+
+LANE_MEMORY_SAMPLES = 10  # reads of the allocated memory, 2 ms apart
+
+
+def _lane_memory(got):
+    """A wrap for _patched: the card's allocated memory into `got` with the
+    engine drained, before a stop or crash and after a restart: the least
+    of LANE_MEMORY_SAMPLES reads 2 ms apart, as the loop keeps stepping
+    the core's live lane and holds a step's tensors while it runs."""
+    def sample(nh):
+        nh.engine.core.drain()
+        least = None
+        for _ in range(LANE_MEMORY_SAMPLES):
+            torch.cuda.synchronize()
+            m = torch.cuda.memory_allocated()
+            least = m if least is None else min(least, m)
+            time.sleep(0.002)
+        return least
+
+    def wrap(f):
+        def call(self, *a, **kw):
+            if f.__name__ != "restart_cluster":
+                got.append(("before_" + f.__name__, sample(self)))
+            r = f(self, *a, **kw)
+            if f.__name__ == "restart_cluster":
+                got.append(("after_restart", sample(self)))
+            return r
+        return call
+    return wrap
+
+
+def scen_files(workdir, device, name, files, bodies):
+    """The reference bodies of tests/<files>.py on the port with their
+    engines on `device`, each in a directory of its own, at its test's
+    shapes, ticks and seeds. On the card the 50-restart body also holds
+    the card's allocated memory from growing: sampled before every stop
+    or crash and after every restart, the last ten cycles hold no more
+    than the first ten."""
+    import inspect
+
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    mods = [_reference(f, device) for f in ((files,) if isinstance(files, str) else files)]
+    out = {"file": files, "verdicts": {}}
+    for test, *params in bodies:
+        M = next(m for m in mods if hasattr(m, test))
+        fn = getattr(M, test)
+        args = list(params)
+        if "tmp_path" in inspect.signature(fn).parameters:
+            d = pathlib.Path(workdir) / test
+            d.mkdir()
+            args.insert(0, d)
+        fixture = getattr(M, "_clear", None)  # test_compression's autouse fixture
+        with contextlib.contextmanager(fixture.__wrapped__)() if fixture else \
+                contextlib.nullcontext():
+            if test != "test_vector_lane_reuse_50_restarts_no_growth" or device != "cuda":
+                _held(out, test, fn, *args)
+                continue
+            mem = []
+            with _patched([(NodeHost, n, _lane_memory(mem))
+                           for n in ("stop_cluster", "crash_cluster", "restart_cluster")]):
+                _held(out, test, fn, *args)
+            vals = [v for _w, v in mem]
+            out["lane_reuse_memory"] = {
+                "before": vals[0], "after": vals[-1], "min": min(vals), "max": max(vals),
+                "first_10_cycles_max": max(vals[:20]), "last_10_cycles_max": max(vals[-20:]),
+                "samples": len(vals),
+                "distinct": {w: sorted({v for x, v in mem if x == w}) for w, _ in mem}}
+            out["verdicts"]["device_memory_no_growth_over_50_restarts"] = (
+                len(vals) == 100 and max(vals[-20:]) <= max(vals[:20]))
+    return out
+
+
+def scen_join(workdir, device, groups):
+    """ROADMAP §3 fault 1 at config 6's width: `groups` groups x 3
+    replicas on one shared core (K=8, W=256, inbox 4, 64 entries a
+    message, 10 ms ticks, phase 11's election and heartbeat), of which
+    CATCHUP_JOINS commit CATCHUP_PRE entries, then each add a replica on a
+    fourth host of the core that starts with join=True. Every joiner is
+    caught up from its leader's host log to the leader's last index, a
+    proposal after the join applies on all four replicas, and the routing
+    table never routes to a lane that keeps its sender at another slot."""
+    C = _tests_module("torch_catchup")
+    r = C.join_shared_core(
+        "dragonboat_tpu_torch", workdir, groups=groups, joins=min(CATCHUP_JOINS, groups),
+        window=256, steps=8, election=SCEN_ELECTION,
+        heartbeat=SCEN_HEARTBEAT, pre_entries=CATCHUP_PRE, inbox_depth=4, entries_per_msg=64,
+        device=device, elect_s=FLEET_ELECT_S, catch_s=60.0)
+    r["verdicts"]["host_log_catchup_for_every_joiner"] = (
+        r["catchup"]["catchup_starts"] >= r["joins"])
+    r["verdicts"]["no_route_to_a_slot_the_destination_lacks"] = r["catchup"]["misrouted"] == 0
+    return r
+
+
+def scen_retry_storm(workdir, device):
+    """ROADMAP §3 fault 6 (tests/test_torch_catchup_storm.py's recipe at
+    seed 3): 4 groups x 3 replicas on one core, W=32, 5 ms ticks,
+    election 50 / heartbeat 5, clients resubmitting on a 0.5 s timeout,
+    30% of co-hosted messages dropped and one host stalled for seeded
+    windows over 8 s; every group commits again within 30 s, its replicas
+    converge, and no catch-up asks for a snapshot that cannot exist."""
+    C = _tests_module("torch_catchup")
+    r = C.retry_storm("dragonboat_tpu_torch", workdir, seed=3, device=device)
+    r["verdicts"]["host_log_catchups"] = r["catchup"]["catchup_starts"] > 0
+    r["verdicts"]["no_snapshot_requested_without_one"] = r["catchup"]["no_snapshot"] == 0
+    return r
+
+
+CATCHUP_SCENARIOS = (
+    ("join_shared_k8", lambda d, dev, g: scen_join(d, dev, g)),
+    ("retry_storm", lambda d, dev, g: scen_retry_storm(d, dev)),
+) + tuple(
+    (name, lambda d, dev, g, f=files, b=bodies, n=name: scen_files(d, dev, n, f, b))
+    for name, files, bodies in CATCHUP_FILES)
+
+
+@contextlib.contextmanager
+def pinned_catchup():
+    """The super-step (or step) just after each joiner's first reject
+    ("join_reject"), each host-log catch-up start ("catchup_start") and
+    each below-window reject ("below_window_reject") is kept, up to
+    CATCHUP_PIN_CAP of each."""
+    from dragonboat_tpu_torch.engine.vector import MT, VectorEngine
+
+    first = set()
+
+    def join_reject(engine, lane, m, *_):
+        key = (lane.node.cluster_id, m.from_)
+        if (m.type == MT.REPLICATE_RESP and m.reject and m.from_ == CATCHUP_JOINER
+                and key not in first):
+            first.add(key)
+            return "join_reject"
+        return None
+
+    caps = StepRecorder.PIN_CAP, SuperstepRecorder.PIN_CAP
+    StepRecorder.PIN_CAP = SuperstepRecorder.PIN_CAP = CATCHUP_PIN_CAP
+    try:
+        with _patched((
+                (VectorEngine, "_pack_wire", _pin_after(join_reject)),
+                (VectorEngine, "_start_catchup",
+                 _pin_after(lambda e, lane, p, o: "catchup_start" if p in lane.catchup
+                            else None)),
+                (VectorEngine, "_below_window_reject",
+                 _pin_after(lambda *_: "below_window_reject")))):
+            yield first
+    finally:
+        StepRecorder.PIN_CAP, SuperstepRecorder.PIN_CAP = caps
+
+
+def phase_catchup(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
+    """Phase 13: the vector engine's follower catch-up on `device`, the join
+    of an empty member over a shared K=8 core at config 6's width (fault
+    1) and the retry storm (fault 6), then the reference bodies of the
+    last eleven test files that drive the vector engine (CATCHUP_FILES),
+    all through run_scenarios. The kernels are held on the recorded
+    states and on those just after each joiner's first reject and each
+    host-log catch-up start."""
+    t_phase = time.perf_counter()
+    log(f"phase 13 card: {card}")
+    before = set(sys.modules)
+    with pinned_catchup() as rejected:
+        out = run_scenarios(cuda, K, card, CATCHUP_SCENARIOS, 1300, device, groups)
+    bad = sorted(m for m in set(sys.modules) - before
+                 if m.split(".")[0] in ("jax", "dragonboat_tpu"))
+    assert not bad, f"phase 13 imported {bad[:5]}"
+    out["joins_first_rejects"] = len(rejected)
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3508,11 +3765,18 @@ def main() -> int:
     from dragonboat_tpu_torch.ops import cuda, kernel as K
     from dragonboat_tpu_torch import kernel_bench as kb
 
+    t_run = time.perf_counter()
+
+    def at(phase):
+        # each phase's start on the run's clock, for its share of the limit
+        log(f"phase {phase} starts at {time.perf_counter() - t_run:.1f} s")
+
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     # ---- phase 0: build ----
+    at("0")
     t0 = time.perf_counter()
     cuda.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f}s")
@@ -3527,14 +3791,17 @@ def main() -> int:
     assert set(ptxas) == set(cuda._KERNELS), f"ptxas reported {sorted(ptxas)}"
 
     # ---- phase 1: the main path ----
+    at("1")
     cfg, kept, launches = phase_cluster(K, cuda)
 
     # ---- phase 3 state first: the 50,000-group kernel regime ----
+    at("3")
     res = kb.run_kernel_bench(BENCH_GROUPS, BENCH_STEPS, 5, 512, device="cuda")
     bcfg = res["cfg"]
     big = (bcfg, res["state"], res["inbox"], res["ticks"])
 
     # ---- phase 2: kernel against its plain version (P=4, P=8, P=5) ----
+    at("2")
     cases, bad, err = phase_compare(K, cuda, cfg, kept, big)
     p5_cases, p5_bad, p5_err, p5_cfg, p5_last = phase_compare_p5(K, cuda, kb)
     cases += p5_cases
@@ -3618,6 +3885,7 @@ def main() -> int:
         raise AssertionError(f"kernel disagrees with the plain version on {bad}")
 
     # ---- phase 4: the super-step path at config 6's shape ----
+    at("4")
     scfg, s0, sroute, srdelta, hosts, kept4, ss_launches = phase_superstep(K, cuda, kb)
     phase_residual(K, cuda, kb)
     unsharded = time_superstep(K, cuda, kb, scfg, s0, sroute, srdelta, hosts, sharded=False)
@@ -3636,15 +3904,18 @@ def main() -> int:
     per_ss = lambda name, r: r["launches_per_superstep"][name]
 
     # ---- phase 5: the engine through NodeHost, configs 2, 6, 1, 3, 4, 5, 8 ----
+    at("5")
     act = time_activation(kb, scfg)
     log(f"activate_lanes @ {scfg.groups} lanes, batch of {act['batch']}: {act['ms']:.4f} ms of "
         f"device time (torch index_put_ ops), bound {act['bound_ms']:.5f} ms ({act['bytes']} B)")
     engines = {c: phase_engine(cuda, K, c) for c in E2E_CONFIGS}
 
     # ---- phase 6: the fault plane on the card ----
+    at("6")
     faults = phase_faults(cuda, K)
 
     # ---- phase 7: the operator tools against live NodeHosts ----
+    at("7")
     tools = phase_tools(cuda, K, engines[2][0])
     log(f"tools: {json.dumps(tools, default=str)}")
     log(f"tools @ {tools['lanes']} lanes: top collect {tools['top']['collect_ms_median']:.3f} ms "
@@ -3654,6 +3925,7 @@ def main() -> int:
         f"lanes per sampler), phase {tools['seconds']} s [{card}]")
 
     # ---- phase 8: tools.longhaul on the card ----
+    at("8")
     lh = phase_longhaul(cuda, K)
     lh_runs = [n for n, _ in LONGHAUL_ROUNDS]
     run_s = ", ".join(f"{n} {lh[n]['seconds']} s" for n in lh_runs)
@@ -3661,6 +3933,7 @@ def main() -> int:
         f"phase {lh['seconds']} s ({run_s}) [{card}]")
 
     # ---- phase 9: native storage, C++ state machines, the C ABI ----
+    at("9")
     nat = phase_native(cuda, K)
     log(f"native @ {nat['main']['lanes']} lanes over NativeWalKV with the C++ KV plugin: "
         f"{nat['main']['proposals_per_s']:.1f} proposals/s (phase 5 config 2: "
@@ -3670,12 +3943,14 @@ def main() -> int:
         f"{nat['demos']}; phase {nat['seconds']} s [{card}]")
 
     # ---- phase 10: the sharded path (shard_over_mesh) on logical shards ----
+    at("10")
     mesh = phase_mesh(cuda, K, kb, card)
     mesh_runs = mesh["runs"]["logical"]
     log(f"mesh: {MESH_SHARDS} shards on {mesh['distinct_cards']} distinct card(s), phase "
         f"{mesh['seconds']} s [{card}]")
 
     # ---- phase 11: the reference's engine-level scenarios ----
+    at("11")
     scen = phase_scenarios(cuda, K, card)
     scen_names = [n for n, _ in SCENARIOS]
     log(f"scenarios: {len(scen_names)} scenarios ("
@@ -3683,12 +3958,22 @@ def main() -> int:
         + f"), phase {scen['seconds']} s [{card}]")
 
     # ---- phase 12: the reference's last engine-level scenarios ----
+    at("12")
     fleet = phase_fleet(cuda, K, card)
     fleet_names = [n for n, _ in FLEET_SCENARIOS]
     log(f"fleet: {len(fleet_names)} scenarios ("
         + ", ".join(f"{n} {fleet[n]['seconds']} s" for n in fleet_names)
         + f"), bulk fleet of {fleet['bulk_fleet']['lanes']} groups elected in "
         f"{fleet['bulk_fleet']['elect_all_s']} s, phase {fleet['seconds']} s [{card}]")
+
+    # ---- phase 13: the follower catch-up and the last eleven test files ----
+    at("13")
+    catch = phase_catchup(cuda, K, card)
+    catch_names = [n for n, _ in CATCHUP_SCENARIOS]
+    log(f"catchup: {len(catch_names)} scenarios ("
+        + ", ".join(f"{n} {catch[n]['seconds']} s" for n in catch_names)
+        + f"), {catch['joins_first_rejects']} joiners' first rejects, phase "
+        f"{catch['seconds']} s, whole run {time.perf_counter() - t_run:.1f} s [{card}]")
 
     # the step kernel against its plain version at the shapes the engine
     # ran in phases 5-9 (each already failed on a mismatch)
@@ -3706,6 +3991,11 @@ def main() -> int:
             if which in scen[n]:
                 shapes[f"scenario_{n}" + ("_superstep" if which[0] == "s" else "")] = scen[n][which]
     shapes.update({f"fleet_{n}": fleet[n]["kernel_vs_plain"] for n in fleet_names})
+    for n in catch_names:
+        for which in ("kernel_vs_plain", "superstep_vs_plain"):
+            if which in catch[n]:
+                shapes[f"catchup_{n}" + ("_superstep" if which[0] == "s" else "")] = \
+                    catch[n][which]
     cases += sum(v["cases"] for v in shapes.values())
     err = max([err] + [v["max_abs_err"] for v in shapes.values()])
     # engine steps of the whole run (config 8: both of its runs)
@@ -3776,6 +4066,7 @@ def main() -> int:
         "mesh": mesh_launches("step_batch"),
         "scenarios": {n: scen[n]["launches"]["step_batch"] for n in scen_names},
         "fleet": {n: fleet[n]["launches"]["step_batch"] for n in fleet_names},
+        "catchup": {n: catch[n]["launches"]["step_batch"] for n in catch_names},
         "engine_shapes": shapes,
         "ptxas": ptxas["step_batch_kernel"],
         "frame_bytes": frames,
@@ -3798,6 +4089,8 @@ def main() -> int:
             "longhaul": longhaul_launches(name),
             "mesh": mesh_launches(name),
             "scenarios": {n: scen[n]["launches"][name] for n in scen_names},
+            "fleet": {n: fleet[n]["launches"][name] for n in fleet_names},
+            "catchup": {n: catch[n]["launches"][name] for n in catch_names},
             "ptxas": ptxas[name + "_kernel"],
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "cases", "bad")},
@@ -3844,6 +4137,12 @@ def main() -> int:
         n: {k: v for k, v in fleet[n].items() if k not in ("launches", "kernel_vs_plain")}
         for n in fleet_names}
     kernels["fleet"]["seconds"] = fleet["seconds"]
+    kernels["catchup"] = {
+        n: {k: v for k, v in catch[n].items()
+            if k not in ("launches", "kernel_vs_plain", "superstep_vs_plain")}
+        for n in catch_names}
+    kernels["catchup"].update(seconds=catch["seconds"],
+                              joins_first_rejects=catch["joins_first_rejects"])
     kernels["activation"]["fleet_bring_up_batches"] = {
         n: fleet[n]["activation"] for n in fleet_names if "activation" in fleet[n]}
     log(f"card: {card_line()}")

@@ -2578,6 +2578,11 @@ class VectorEngine:
                 # remote until the follower crosses the window base.
                 self._below_window_reject(lane, from_slot, m)
                 return False
+            cu = lane.catchup.get(from_slot)
+            if cu is not None and not m.reject and cu[2] < m.log_index <= b:
+                # an ack at or below the window base, where the device keeps
+                # no match: the host catch-up notes the follower's progress
+                cu[2], cu[3] = m.log_index, self.clock.tick
             self._stage_row(
                 g, k, MSG.REPLICATE_RESP, from_slot=from_slot, term=m.term,
                 log_index=m.log_index - b, reject=m.reject,
@@ -2834,6 +2839,14 @@ class VectorEngine:
                     or dst.recovering
                     or dst.node.stopped
                     or dst.key[0] in blocked
+                    # the router stamps a message with its sender's own
+                    # slot: route only where the destination keeps the
+                    # sender at that slot. A replica that joined as an
+                    # empty member knows no peer until it applies the
+                    # membership; the host path parks the sender on a
+                    # free slot for it (`slot_of`), and a routed message
+                    # would reach it from a slot it cannot answer
+                    or dst.slots.get(lane.node.node_id()) != self_slot
                 ):
                     continue
                 route[g, p] = dst.g
@@ -3336,7 +3349,14 @@ class VectorEngine:
         match. The park watermark is base+1: the first ack at or above the
         window base un-parks it and device replication takes over."""
         g = lane.g
-        if p in lane.catchup or p in lane.snap_inflight:
+        cu = lane.catchup.get(p)
+        if cu is not None:
+            # a catch-up Replicate met a log that ends below it (a message
+            # lost on the way, or a suffix that does not match): resume
+            # from the follower's last index, as the reject's hint says
+            cu[0], cu[2] = m.hint + 1, m.hint
+            return
+        if p in lane.snap_inflight:
             return  # recovery already running for this peer
         if int(self._m_role[g]) != ROLE.LEADER:
             return
@@ -3369,7 +3389,8 @@ class VectorEngine:
         start = match + 1
         first, last = lane.node.log_reader.get_range()
         if start >= first and start <= last + 1:
-            # [next_to_send, goal, match_at_progress, progress_tick]
+            # [next_to_send, goal, the follower's match as the host knows
+            #  it, tick of the last send or progress]
             lane.catchup[p] = [start, goal, match, self.clock.tick]
             self._catchups.add(lane)
         else:
@@ -3428,23 +3449,29 @@ class VectorEngine:
             return
         g = lane.g
         b = int(self._m_base[g])
-        # a follower that stops acking for two election timeouts is treated
-        # as lost (the same silence bound the protocol uses to declare a
-        # leader dead) and falls back to the snapshot path
-        stall_ticks = max(2 * lane.cfg.election_rtt, 8)
+        # a catch-up Replicate lost on the way (a drop, a partition) is
+        # resent from the follower's match once two heartbeats pass with
+        # neither a send nor an ack, as the device path re-probes on a
+        # HeartbeatResp; only a host log that no longer holds the
+        # follower's next entry calls for a snapshot (falling back to one
+        # after a silence instead asked for a snapshot that need not
+        # exist, then waited out the snapshot feedback's retry)
+        resend_ticks = max(2 * lane.cfg.heartbeat_rtt, 4)
+        tick = self.clock.tick
         done = []
         for p, cu in lane.catchup.items():
-            nxt, goal, last_match, progress_tick = cu
-            match = b + int(o["match"][g, p])
+            nxt, goal, known, quiet_since = cu
+            # the device keeps no match below the window base (0 there):
+            # what the host knows of the follower stands in for it
+            dm = int(o["match"][g, p])
+            match = b + dm if dm > 0 else known
             if match >= goal or int(self._m_role[g]) != ROLE.LEADER:
                 done.append(p)
                 continue
-            if match > last_match:
-                cu[2], cu[3] = match, self.clock.tick
-            elif self.clock.tick - progress_tick > stall_ticks:
-                done.append(p)
-                self._send_snapshot(lane, p)
-                continue
+            if match > known:
+                cu[2], cu[3] = match, tick
+            elif tick - quiet_since > resend_ticks:
+                nxt = match + 1
             if match + 1 > nxt:
                 nxt = match + 1
             first, last = lane.node.log_reader.get_range()
@@ -3488,7 +3515,7 @@ class VectorEngine:
                     entries=ents,
                 )
             )
-            cu[0] = ents[-1].index + 1
+            cu[0], cu[3] = ents[-1].index + 1, tick
         for p in done:
             lane.catchup.pop(p, None)
         if not lane.catchup:

@@ -1,0 +1,27 @@
+"""chip_smoke.py phase 13 rehearsed on the CPU, a scenario at a time: the
+join of empty members over a shared K=8 core (8 groups x 3 here, 1,024 x 3
+on the card; 8 joins and 300 entries first, past the 256-entry window),
+the retry storm, and the reference bodies of the last eleven test files
+that drive the vector engine. Every verdict holds and the engines stepped
+the plain version. The rehearsals of files with a slow body are slow."""
+import pytest
+
+import chip_smoke
+from dragonboat_tpu_torch.ops import cuda, kernel as K
+from torch_twin import one_thread  # noqa: F401
+
+SLOW = ("restart", "snapshot_files", "rate_limit", "storage", "chaos")
+
+
+@pytest.mark.parametrize("name", [
+    pytest.param(n, marks=pytest.mark.slow) if n in SLOW else n
+    for n, _ in chip_smoke.CATCHUP_SCENARIOS])
+def test_phase_catchup_scenario_on_cpu(name, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "CATCHUP_SCENARIOS",
+                        tuple(s for s in chip_smoke.CATCHUP_SCENARIOS if s[0] == name))
+    out = chip_smoke.phase_catchup(cuda, K, "cpu", device="cpu", groups=8)
+    r = out[name]
+    assert r["verdicts"] and all(r["verdicts"].values()), (r["verdicts"], r.get("failed"))
+    assert r["plain_step_calls"] > 0 and r["launches"]["step_batch"] == 0
+    if name == "join_shared_k8":
+        assert out["joins_first_rejects"] == 8

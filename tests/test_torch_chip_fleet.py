@@ -2,9 +2,9 @@
 observability, forensics, vector-scale and chaos-at-scale tests through the
 port's NodeHost) rehearsed on the CPU: every scenario's verdicts hold and
 its engines stepped the plain version. Each body runs at its test's shape;
-the config-2-width bring-up runs at 8 groups x 3 here, and the wide chaos
-run, the reference-shape one at 8 groups, is left to the card. The
-rehearsals of the reference's slow tests are slow too."""
+the config-2-width bring-up runs at 8 groups x 3 here and the chaos body at
+its test's 256 x 3 (both at 1,024 x 3 on the card). The rehearsals of the
+reference's slow tests are slow too."""
 import pytest
 
 import chip_smoke
@@ -16,7 +16,7 @@ SLOW = ("scale", "quiesce", "chaos_scale")
 
 @pytest.mark.parametrize("name", [
     pytest.param(n, marks=pytest.mark.slow) if n in SLOW else n
-    for n, _ in chip_smoke.FLEET_SCENARIOS if n != "chaos_scale_3x1024"])
+    for n, _ in chip_smoke.FLEET_SCENARIOS])
 def test_phase_fleet_scenario_on_cpu(name, monkeypatch):
     monkeypatch.setattr(chip_smoke, "FLEET_SCENARIOS",
                         tuple(s for s in chip_smoke.FLEET_SCENARIOS if s[0] == name))

@@ -74,7 +74,7 @@ class KVSM(IStateMachine):
         self.data, self.update_count = json.loads(r.read().decode())
 
 
-def mk_nodehost(addr, registry, nodehost_dir="", mode=(1, False), shared=True):
+def mk_nodehost(addr, registry, nodehost_dir="", mode=(1, False)):
     cfg = NodeHostConfig(
         deployment_id=1,
         rtt_millisecond=RTT_MS,
@@ -86,7 +86,7 @@ def mk_nodehost(addr, registry, nodehost_dir="", mode=(1, False), shared=True):
             device="cpu", steps_per_sync=mode[0], overlap_decode=mode[1],
             # K>1 runs as it is deployed: the test's hosts share one core,
             # so co-hosted traffic goes through the on-device router
-            share_scope=f"k8-{id(registry)}" if mode[0] > 1 and shared else None,
+            share_scope=f"k8-{id(registry)}" if mode[0] > 1 else None,
         ),
     )
     return NodeHost(cfg)
@@ -223,13 +223,7 @@ def test_session_dedup_e2e(mode):
 def test_membership_change_e2e(mode):
     reg = _Registry()
     members = {1: "a:1", 2: "b:2", 3: "c:3"}
-    # a replica that joins a SHARED K>1 core as an empty member is never
-    # caught up, in the JAX package as here (ROADMAP section 3): the join
-    # runs over separate cores
-    nhs = {
-        nid: mk_nodehost(addr, reg, mode=mode, shared=False)
-        for nid, addr in members.items()
-    }
+    nhs = {nid: mk_nodehost(addr, reg, mode=mode) for nid, addr in members.items()}
     try:
         for nid in (1, 2):
             nhs[nid].start_cluster(

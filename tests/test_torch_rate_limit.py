@@ -1,0 +1,50 @@
+"""Twin of tests/test_rate_limit.py on the PyTorch port (CPU engines).
+
+Every test of the reference file runs here with its names bound to the port
+(`torch_twin.port_copy`): the rate limiter's local and follower limits and
+their ageing out, the in-memory log's byte accounting, the scalar core's
+follower reports, and a NodeHost refusing a burst with ErrSystemBusy and
+accepting work again on either engine (slow).
+
+The test below drives both packages' rate limiters with one seeded
+sequence of operations and holds every decision equal."""
+import importlib
+import random
+
+import pytest
+
+from torch_twin import one_thread, port_copy, reference_tests  # noqa: F401
+
+R = port_copy("test_rate_limit")
+globals().update(reference_tests(R))
+
+
+def decisions(pkg, seed, n=400):
+    RL = importlib.import_module(pkg + ".core.rate").RateLimiter
+    rng = random.Random(seed)
+    rl = RL(rng.choice([0, 100, 4096]))
+    out = []
+    for _ in range(n):
+        op = rng.choice(["set", "inc", "dec", "follower", "tick", "reset"])
+        if op == "set":
+            rl.set(rng.randrange(0, 5000))
+        elif op == "inc":
+            rl.increase(rng.randrange(0, 500))
+        elif op == "dec":
+            rl.decrease(rng.randrange(0, 500))
+        elif op == "follower":
+            rl.set_follower_state(rng.randrange(1, 6), rng.randrange(0, 8000))
+        elif op == "tick":
+            for _ in range(rng.randrange(1, RL.GC_TICK + 2)):
+                rl.tick()
+        else:
+            rl.reset_follower_state()
+        out.append((op, rl.enabled, rl.rate_limited(), rl.get()))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_limiter_decisions_match_reference(seed):
+    ref = decisions("dragonboat_tpu", seed)
+    port = decisions("dragonboat_tpu_torch", seed)
+    assert port == ref

@@ -24,7 +24,10 @@ FIVE = ("test_bring_up", "test_observability", "test_forensics", "test_vector_sc
 # every reference test file that a twin runs on the port
 TWINNED = FIVE + ("test_witness_lanes", "test_shared_engine", "test_fanout_columnar",
                   "test_lease", "test_prevote", "test_differential", "test_streamed_install",
-                  "test_snapshot_lanes", "test_crash_safety")
+                  "test_snapshot_lanes", "test_crash_safety",
+                  "test_restart", "test_propose_batch", "test_snapshotstate",
+                  "test_snapshot_files", "test_compression", "test_fairness", "test_events",
+                  "test_rate_limit", "test_storage", "test_chaos", "test_readindex_tracker")
 
 
 def _imports(mod, src):

@@ -24,10 +24,11 @@ is.
 `reference_tests(mod)` is what a twin file exports so that pytest collects
 the copy's tests (with their marks and parametrisations) and fixtures under
 the twin's name. `recording(mod, names)` records what a module's helper
-functions return, `instances(mod, names)` the objects its classes make
-and `cluster_counters(mod)` each LoopbackCluster step's counter planes,
-which lets a twin run the same seeded test body through both packages
-and hold the traces equal.
+functions return, `instances(mod, names)` the objects its classes make,
+`cluster_counters(mod)` each LoopbackCluster step's counter planes and
+`calls(cls, methods)` what a class's methods return, which lets a twin
+run the same seeded test body through both packages and hold the traces
+equal.
 """
 from __future__ import annotations
 
@@ -219,6 +220,33 @@ def instances(mod, names):
     finally:
         for n, cls in saved.items():
             setattr(mod, n, cls)
+
+
+@contextlib.contextmanager
+def calls(cls, methods, probe=None):
+    """Record, during the block, what each method of `methods` of the class
+    `cls` returns: a list of (method name, result) in call order, or of
+    (method name, probe(object, result)) when `probe` is given. The class
+    itself is patched, so objects made through any import of it are seen
+    (a test body that imports its NodeHost inside the function)."""
+    saved = {n: vars(cls)[n] for n in methods}
+    got = []
+
+    def wrap(n, fn):
+        @functools.wraps(fn)
+        def call(self, *a, **kw):
+            r = fn(self, *a, **kw)
+            got.append((n, r if probe is None else probe(self, r)))
+            return r
+        return call
+
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield got
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
 
 
 @pytest.fixture(autouse=True)
