@@ -21,7 +21,7 @@ its public entry, `dragonboat_tpu_torch.e2e.run_ladder_config` (the
 config's NodeHosts sharing one engine core, WAL and fsync in a temp dir):
 BASELINE configs 2 and 6 (1024 groups x 3 replicas, K=1 and K=8), then 1
 (one group), 3 (9 ReadIndex reads per write), 4 (1% of replication
-traffic dropped), 5 (snapshots and membership churn) at 1024 groups x 5
+traffic dropped), 5 (snapshots and membership churn) at 512 groups x 5
 replicas, 8 (ReadIndex reads, then lease reads, 1024 groups x 3) and 7
 (64 groups x 3 through the serving fronts: per-tenant admission,
 sessions, placement planes), with gates on elections, commits, replica
@@ -49,8 +49,8 @@ and rejoin families, and an injected failure whose forensic bundle must
 be complete; every other round must pass every verdict (lincheck,
 convergence, Log Matching, fairness), the preflight tools.check must
 find nothing, and each round's schedule signature must be the one the
-JAX package's runner draws for its seed. Phase 9 runs config 2's width
-with every host's log over the native WAL store (NativeWalKV) and every
+JAX package's runner draws for its seed. Phase 9 runs half config 2's
+width (512 groups x 3) with every host's log over the native WAL store (NativeWalKV) and every
 group's state machine the C++ KV plugin: elected, linearizable, every
 group's replicas at one C++ SM hash; then the on-disk C++ plugin's
 restart and the C embedding ABI's two demo applications, linked against
@@ -61,15 +61,15 @@ the candidate gather launched once per destination shard and ordered by
 events: the sharded super-step at config 6's shape in lockstep with the
 plain sharded version and at 50,000 lanes with the plain one (every
 field), its wall and busy time against the unsharded one's, then configs
-6 and 2 through NodeHost with shard_over_mesh (every gate, the mesh
+6 and 2 (at 512 groups x 3) through NodeHost with shard_over_mesh (every gate, the mesh
 stamps, no host message for co-hosted traffic at K=8, the launches of
 every kernel per shard); it prints how many distinct cards it spanned,
 and where several are visible also runs over them. Phase 11 runs the
 reference's engine-level scenarios through NodeHost on the card and
 asserts their tests' verdicts: witness lanes (zero payload, the witness
 in the commit quorum) at K=1 and on a K=8 core, and the pre-vote rejoin
-storm with pre-vote on and off, each at config 2's width (1,024 groups x
-3 replicas on one core); the lease grant, local read, probe and fallback;
+storm with pre-vote on and off, each at half config 2's width (512 groups
+x 3 replicas on one core); the lease grant, local read, probe and fallback;
 a streamed install resumed after a host crash, and its abort; a crash
 mid snapshot save, then the rejoin; each scenario's recorded states
 (witnesses, pre-candidates, live leases, installs in flight) then hold
@@ -92,7 +92,10 @@ drops and the wake from quiesce as well. Phase 13 runs the vector
 engine's follower catch-up on the card: 32 groups of 1,024 x 3 on one
 shared K=8 core each add a replica on a fourth host that joins as an
 empty member and is caught up from its leader's host log (ROADMAP §3
-fault 1), and the retry storm of fault 6; then the reference bodies of
+fault 1), and the retry storm of fault 6; a member caught up below a
+rebased window (fault 11) and a snapshot install whose recovery waits
+while the step appends, on both engines (fault 9), with no log hole
+and no save without its payload; then the reference bodies of
 the last eleven test files that drive the vector engine (restarts, 50
 lane restarts with no growth of the card's allocated memory, batched
 proposals, snapshot requests and external files, compression, the rate
@@ -978,8 +981,9 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 
 # BASELINE configs through NodeHost (bench.py:1124-1182): 2 and 6 at full
 # width; then 1 (one group) and 8 (1024 groups) at full width, and 3, 4 and
-# 5 at 1024 groups x 5 replicas (5120 lanes, nominally 10,000 and 50,000
-# groups: stamped scaled_down); last 7 (64 groups x 3, through the serving
+# 5 at 512 groups x 5 replicas (2560 lanes, nominally 10,000 and 50,000
+# groups: stamped scaled_down; 1024 until the script's time on a slow card
+# host neared its limit); last 7 (64 groups x 3, through the serving
 # fronts) at full width. Windows are cut from bench.py's 10 s (configs 2
 # and 6) and 8 s (7) to keep the script within its time. The load
 # runs through a 2 s warm-up (and until every group has a wave in flight), so each
@@ -988,7 +992,7 @@ def phase_new_kernels(K, cuda, kb, cfg, kept):
 # step a second, slower on a slow host), and a window runs on until every
 # group committed a wave inside it (e2e.bench_e2e)
 E2E_CONFIGS = (2, 6, 1, 3, 4, 5, 8, 7)
-E2E_GROUPS = {3: 1024, 4: 1024, 5: 1024}
+E2E_GROUPS = {3: 512, 4: 512, 5: 512}
 E2E_WINDOW_S = {1: 4.0, 2: 5.0, 3: 4.0, 4: 4.0, 5: 4.0, 6: 5.0, 7: 4.0, 8: 4.0}
 # the kernels each config's engine path must launch
 E2E_KERNELS = {1: ("step_batch",),
@@ -1962,13 +1966,14 @@ def phase_longhaul(cuda, K, device="cuda", rounds=LONGHAUL_ROUNDS):
 
 # ------------- phase 9: native storage, C++ state machines, the C ABI
 
-# config 2's width: 3 hosts x 1024 groups on one core, K=1, 10 ms ticks
-NATIVE_GROUPS = 1024
+# half config 2's width: 3 hosts x 512 groups on one core, K=1, 10 ms ticks
+# (1024 until the script's time on a slow card host neared its limit)
+NATIVE_GROUPS = 512
 NATIVE_LOAD_S = 2.0
 NATIVE_WAVE = 128
 
 
-def _native_lincheck(hosts, leaders, snap_fn, groups=8, clients=3, ops=8, seed=9):
+def _native_lincheck(hosts, leaders, snap_fn, groups=8, clients=3, ops=4, seed=9):
     """e2e.lincheck_run's clients for the C++ KV plugin: `key=value`
     puts and byte-key reads of the first `groups` groups."""
     import random
@@ -2234,7 +2239,7 @@ def phase_native(cuda, K, device="cuda", groups=NATIVE_GROUPS, load_s=NATIVE_LOA
     """Phase 9: the native pieces on `device`. Builds native/ (make: the
     WAL store and the example C++ state machine plugins) and the port's
     embedding library with its demos (dragonboat_tpu_torch.native); a
-    failed build fails the phase. Main run at config 2's width (3 hosts x
+    failed build fails the phase. Main run at `groups` groups (3 hosts x
     `groups` groups on one core, K=1): each host's ShardedLogDB over
     NativeWalKV, every group's state machine the C++ KV plugin through
     CppStateMachineFactory; elect every group, pipelined waves for
@@ -2292,9 +2297,11 @@ def phase_native(cuda, K, device="cuda", groups=NATIVE_GROUPS, load_s=NATIVE_LOA
 # one-card machine all of them on cuda:0 (logical shards). The kernel-level
 # lockstep runs config 6's shape (3,072 lanes) and BASELINE's scale (50,000
 # lanes: 12,500 groups x 4 replicas, 12,500 lanes a shard); the engine runs
-# configs 6 and 2 through NodeHost with shard_over_mesh, each over a 4 s
-# window (bench.py's 10 s, cut to keep the script within its time)
+# configs 6 and 2 through NodeHost with shard_over_mesh at MESH_ENGINE_GROUPS
+# (half config 2's 1,024), each over a 4 s window (bench.py's 10 s; both cut
+# to keep the script within its time on a slow card host)
 MESH_ENGINE_S = 4.0
+MESH_ENGINE_GROUPS = 512
 MESH_SHARDS = 4
 MESH_WINDOWS = 4
 MESH_BIG = (12500, 4)
@@ -2538,7 +2545,8 @@ def phase_mesh(cuda, K, kb, card):
             run["lockstep_50k"]["gather"] = gather_at_scale(K, kb, bcfg, devices,
                                                             run["lockstep_50k"]["sharded"])
         for config in MESH_CONFIGS if name == "logical" else MESH_CONFIGS[:1]:
-            r, launches = phase_mesh_engine(cuda, K, config, devices, duration=MESH_ENGINE_S)
+            r, launches = phase_mesh_engine(cuda, K, config, devices, groups=MESH_ENGINE_GROUPS,
+                                            duration=MESH_ENGINE_S)
             run[f"config{config}"] = r
         out["runs"][name] = run
     out["seconds"] = round(time.perf_counter() - t_phase, 2)
@@ -2547,14 +2555,17 @@ def phase_mesh(cuda, K, kb, card):
 
 # ------------- phase 11: the reference's engine-level scenarios on the card
 
-# (a) and (b) at BASELINE config 2's width: 1,024 groups x 3 replicas on one
-# shared core, config 2's engine shape (W=256, inbox 4, 64 entries a
-# message), 10 ms ticks. Elections 50 ticks and heartbeats 10: the storm
+# (a) and (b) at half BASELINE config 2's width: 512 groups x 3 replicas on
+# one shared core (config 2's 1,024 until the script's time on a slow card
+# host neared its limit), config 2's engine shape (W=256, inbox 4, 64
+# entries a message), 10 ms ticks. Elections 50 ticks and heartbeats 10: the storm
 # isolates a replica for 8 election timeouts (the reference storm's
 # schedule), which short timeouts keep to seconds. Pre-vote with
 # check-quorum, the canonical pairing, except where the storm turns
 # pre-vote off.
-SCEN_GROUPS = 1024
+SCEN_GROUPS = 512
+# phases 12 and 13 keep config 2's width (1,024 groups x 3)
+WIDE_GROUPS = 1024
 SCEN_RTT_MS = 10
 SCEN_ELECTION, SCEN_HEARTBEAT = 50, 10
 SCEN_WAVE = 4  # proposals per group in a wave
@@ -2614,7 +2625,7 @@ def _wave(hosts, leaders, groups, tag, timeout_s=60.0):
 
 
 def scen_witness(workdir, device, groups=SCEN_GROUPS, steps_per_sync=1):
-    """tests/test_witness_lanes.py at config 2's width: groups of 2 full
+    """tests/test_witness_lanes.py at SCEN_GROUPS' width: groups of 2 full
     replicas (hosts 1 and 2) elect, each leader adds node 3 as a WITNESS
     through the membership API and host 3 starts it with join, a wave of
     proposals per group commits. Verdicts (the reference's): every witness
@@ -2719,7 +2730,7 @@ def reference_storm(prevote, device):
 
 
 def scen_storm(workdir, device, prevote, groups=SCEN_GROUPS):
-    """The rejoin storm at config 2's width: 3 replicas a group, leaders on
+    """The rejoin storm at SCEN_GROUPS' width: 3 replicas a group, leaders on
     hosts 1 and 2 (host 3 starts after they elect); a wave; host 3 stops
     (one replica of every group), a wave it misses, host 3 restarts from
     its directory partitioned, every one of its replicas campaigns in
@@ -3118,7 +3129,8 @@ SCENARIOS = (
 )
 
 
-def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
+def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None,
+                  host_only=()):
     """Run each (name, fn) of `scenarios` through the port's NodeHost on
     `device` with the launch counts zeroed just before it and read just
     after, its K=1 engine steps recorded (StepRecorder) and its K=8
@@ -3126,7 +3138,9 @@ def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
     kernels and never the plain step, and the step kernel (and at K=8 the
     router) is then held against its plain version on the recorded
     states. Prints one line per scenario and fails on any false verdict or
-    mismatched field. Returns the records by name."""
+    mismatched field. A scenario named in `host_only` runs the scalar
+    engine, which launches no kernel and records no step. Returns the
+    records by name."""
     import tempfile
 
     out = {}
@@ -3142,7 +3156,10 @@ def run_scenarios(cuda, K, card, scenarios, seed, device="cuda", groups=None):
         r["launches"] = dict(cuda.LAUNCHES)
         r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
         compared = []
-        if device == "cuda":
+        if device == "cuda" and name in host_only:
+            assert r["plain_step_calls"] == 0 and r["launches"]["step_batch"] == 0, (
+                f"{name}: a host-only scenario stepped a vector engine")
+        elif device == "cuda":
             assert r["plain_step_calls"] == 0, f"{name}: the engine ran the plain step on the card"
             assert r["launches"]["step_batch"] > 0, f"{name}: the step kernel never launched"
             if rec.states:
@@ -3194,8 +3211,8 @@ def phase_scenarios(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
 # Each scenario runs the reference test's own body: tests/<file>.py copied
 # onto the port by tests/torch_twin.py with its engines on the card, at
 # the test's shapes, ticks, timeouts and seeds; a body whose assertions
-# hold is a true verdict. (f) also runs, and (j) runs only, at config 2's
-# width (1,024 groups x 3 replicas on one core).
+# hold is a true verdict. (f) also runs, and (j) runs only, at WIDE_GROUPS'
+# width (config 2's 1,024 groups x 3 replicas on one core).
 FLEET_ELECT_S = 120  # tests/test_bring_up.py's bound on electing every group
 FLEET_GROUPS = 2048  # test_bulk_fleet_bring_up's fleet
 
@@ -3347,7 +3364,7 @@ def scen_bulk_fleet(workdir, device):
 
 
 def scen_bulk_shared(workdir, device, groups):
-    """(f) at config 2's width: `groups` groups x 3 replicas on one shared
+    """(f) at WIDE_GROUPS' width: `groups` groups x 3 replicas on one shared
     core (phase 11's host and group shapes, metrics on), each of the 3
     hosts calling start_clusters once, every group elected within 120 s.
     Then tests/test_observability.py's census-and-counter and history-gauge
@@ -3526,11 +3543,11 @@ FLEET_SCENARIOS = (
 )
 
 
-def phase_fleet(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
+def phase_fleet(cuda, K, card, device="cuda", groups=WIDE_GROUPS):
     """Phase 12: the reference's last five engine-level test files' bodies
     on the port's NodeHost on `device` (FLEET_SCENARIOS, through
     run_scenarios, each at its test's shape; (f) also, and (j) only, with
-    `groups` groups x 3 replicas, config 2's width by default): bulk fleet
+    `groups` groups x 3 replicas, WIDE_GROUPS by default): bulk fleet
     bring-up and restart, observability, forensics, vector scale and chaos
     at vector scale. The kernel is held on the steps each run recorded
     and on those just after bulk starts, host stops and restarts,
@@ -3549,7 +3566,7 @@ def phase_fleet(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
 
 # ------- phase 13: the follower catch-up and the last eleven test files
 
-# Fault 1 at config 6's width: of 1,024 groups x 3 replicas on one shared
+# Fault 1 at config 6's width: of WIDE_GROUPS x 3 replicas on one shared
 # K=8 core, CATCHUP_JOINS first commit CATCHUP_PRE entries (past the
 # 256-entry window, so the joiner is caught up from the host log) and then
 # add a replica on a fourth host of the core, which joins as an empty member
@@ -3589,7 +3606,11 @@ CATCHUP_FILES = (
 )
 
 
-LANE_MEMORY_SAMPLES = 10  # reads of the allocated memory, 2 ms apart
+# reads of the allocated memory, 2 ms apart: a sample is their least. A
+# step's tensors, or a restart's, can stay alive for tens of ms after the
+# drain (10 reads kept such transients, 512 and 56,832 B above the
+# resident memory, in two of four runs on the card); 50 reads span 100 ms
+LANE_MEMORY_SAMPLES = 50
 
 
 def _lane_memory(got):
@@ -3662,7 +3683,7 @@ def scen_files(workdir, device, name, files, bodies):
 
 
 def scen_join(workdir, device, groups):
-    """ROADMAP §3 fault 1 at config 6's width: `groups` groups x 3
+    """ROADMAP §3 fault 1 at config 6's engine shape: `groups` groups x 3
     replicas on one shared core (K=8, W=256, inbox 4, 64 entries a
     message, 10 ms ticks, phase 11's election and heartbeat), of which
     CATCHUP_JOINS commit CATCHUP_PRE entries, then each add a replica on a
@@ -3696,9 +3717,97 @@ def scen_retry_storm(workdir, device):
     return r
 
 
+REBASE_THRESHOLD = 32  # fault 11's recipe: a window base that moves past 48 entries
+
+
+@contextlib.contextmanager
+def _rebase_at(threshold):
+    """engine.vector._REBASE_THRESHOLD set to `threshold` during the block."""
+    from dragonboat_tpu_torch.engine import vector
+
+    saved = vector._REBASE_THRESHOLD
+    vector._REBASE_THRESHOLD = threshold
+    try:
+        yield
+    finally:
+        vector._REBASE_THRESHOLD = saved
+
+
+def _joiner_verdicts(r, got):
+    """The save verdicts of ROADMAP §3 fault 11 on the joiners' lanes."""
+    r.update(joiner_saves={k: got[k] for k in ("persisted", "acks", "wide_saves")},
+             wide_save_notes=got["wide_save_notes"][:4],
+             acked_unpersisted=got["acked_unpersisted"][:8],
+             missing_saves=got["missing_saves"][:8])
+    r["verdicts"].update(
+        no_ack_above_persisted=not got["acked_unpersisted"],
+        no_save_without_payload=not got["missing_saves"])
+
+
+def scen_rebased(workdir, device):
+    """ROADMAP §3 fault 11 (tests/test_torch_catchup_storm.py's rebased
+    window): 4 groups x 3 replicas, each host on its own core, K=1, W=32,
+    the rebase threshold lowered to 32, 48 entries, then 2 groups each add
+    a member that joins empty and is caught up from its leader's host log
+    below the rebased base. Every joiner reaches its leader's index; each
+    ack a joiner sends is at or below what it has persisted, and no save
+    lacks a payload."""
+    C = _tests_module("torch_catchup")
+    L = _tests_module("torch_log_hole")
+    with _rebase_at(REBASE_THRESHOLD), \
+            L._joiner_watch("dragonboat_tpu_torch", CATCHUP_JOINER) as got:
+        r = C.join_shared_core("dragonboat_tpu_torch", workdir, shared=False, steps=1,
+                               device=device)
+    r["verdicts"]["below_window_rejects_served"] = (
+        r["catchup"]["below_window_rejects"] >= r["joins"])
+    r["verdicts"]["no_snapshot_requested_without_one"] = r["catchup"]["no_snapshot"] == 0
+    _joiner_verdicts(r, got)
+    return r
+
+
+def scen_rebased_overflow(workdir, device):
+    """The same window (2 groups joined) with the joiner's inbox held from
+    its leaders' first below-window reject until they have sent it past
+    the 48 entries, so its inbox piles up 32-entry catch-up runs and one
+    step accepts more entries than its 32-slot arena ring
+    (tests/torch_log_hole.py:rebased_overflow). The arena holds every
+    entry to its save: the joiners are caught up, every ack is persisted,
+    and the watch's notes name the wide saves (per step since the lane's
+    last save: its packed inbox slots, rep_base and last_index)."""
+    L = _tests_module("torch_log_hole")
+    with _rebase_at(REBASE_THRESHOLD):
+        r = L.rebased_overflow("dragonboat_tpu_torch", workdir, device=device)
+    r["verdicts"]["a_step_saved_a_run_wider_than_the_window"] = r["wide_saves"] > 0
+    r["verdicts"]["engine_running"] = r["engine_fault"] is None
+    return r
+
+
+def scen_install_interleaving(workdir, device, kind):
+    """ROADMAP §3 fault 9 (tests/torch_log_hole.py:install_interleaving)
+    on `kind`'s engine: a follower restarted behind a compacted log gets a
+    snapshot whose recovery the gate holds while the leader commits above
+    it. Every replica converges to one applied index and state machine
+    hash, and only the thread that applied the install (the scalar step
+    worker, the vector engine's loop) moves the follower's log window."""
+    L = _tests_module("torch_log_hole")
+    r = L.install_interleaving("dragonboat_tpu_torch", workdir, kind, device=device)
+    r["verdicts"]["window_moved_by_the_install_only"] = not L.worker_window_moves(r)
+    if kind == "scalar":
+        r["verdicts"]["appended_above_the_install_while_held"] = (
+            r["appended_past_install_while_held"] >= 2)
+    return r
+
+
+# scenarios of the scalar engine: no kernel runs in them
+HOST_ONLY_SCENARIOS = {"install_scalar"}
+
 CATCHUP_SCENARIOS = (
     ("join_shared_k8", lambda d, dev, g: scen_join(d, dev, g)),
     ("retry_storm", lambda d, dev, g: scen_retry_storm(d, dev)),
+    ("rebased_window", lambda d, dev, g: scen_rebased(d, dev)),
+    ("rebased_overflow", lambda d, dev, g: scen_rebased_overflow(d, dev)),
+    ("install_scalar", lambda d, dev, g: scen_install_interleaving(d, dev, "scalar")),
+    ("install_vector", lambda d, dev, g: scen_install_interleaving(d, dev, "vector")),
 ) + tuple(
     (name, lambda d, dev, g, f=files, b=bodies, n=name: scen_files(d, dev, n, f, b))
     for name, files, bodies in CATCHUP_FILES)
@@ -3707,19 +3816,39 @@ CATCHUP_SCENARIOS = (
 @contextlib.contextmanager
 def pinned_catchup():
     """The super-step (or step) just after each joiner's first reject
-    ("join_reject"), each host-log catch-up start ("catchup_start") and
-    each below-window reject ("below_window_reject") is kept, up to
-    CATCHUP_PIN_CAP of each."""
+    ("join_reject") and first save of entries ("join_first_save"), each
+    host-log catch-up start ("catchup_start") and each below-window reject
+    ("below_window_reject") is kept, up to CATCHUP_PIN_CAP of each. A
+    joiner's "first" is per scenario (per StepRecorder); the yielded list
+    holds every joiner's first reject of the phase."""
     from dragonboat_tpu_torch.engine.vector import MT, VectorEngine
 
-    first = set()
+    first = []  # (scenario number, cluster) of each joiner's first reject
+    seen = {"rec": None, "n": 0, "rejects": set(), "saves": set()}
+
+    def scenario():
+        # a scenario's recorder is new: its joiners' firsts start anew
+        if seen["rec"] is not StepRecorder.active:
+            seen.update(rec=StepRecorder.active, n=seen["n"] + 1, rejects=set(), saves=set())
+        return seen
 
     def join_reject(engine, lane, m, *_):
-        key = (lane.node.cluster_id, m.from_)
+        sc = scenario()
+        key = lane.node.cluster_id
         if (m.type == MT.REPLICATE_RESP and m.reject and m.from_ == CATCHUP_JOINER
-                and key not in first):
-            first.add(key)
+                and key not in sc["rejects"]):
+            sc["rejects"].add(key)
+            first.append((sc["n"], key))
             return "join_reject"
+        return None
+
+    def join_save(engine, updates, lane_saves):
+        sc = scenario()
+        for lane, ents, _state in lane_saves:
+            key = lane.node.cluster_id
+            if ents and lane.node.node_id() == CATCHUP_JOINER and key not in sc["saves"]:
+                sc["saves"].add(key)
+                return "join_first_save"
         return None
 
     caps = StepRecorder.PIN_CAP, SuperstepRecorder.PIN_CAP
@@ -3727,6 +3856,7 @@ def pinned_catchup():
     try:
         with _patched((
                 (VectorEngine, "_pack_wire", _pin_after(join_reject)),
+                (VectorEngine, "_commit_saves", _pin_after(join_save)),
                 (VectorEngine, "_start_catchup",
                  _pin_after(lambda e, lane, p, o: "catchup_start" if p in lane.catchup
                             else None)),
@@ -3737,23 +3867,37 @@ def pinned_catchup():
         StepRecorder.PIN_CAP, SuperstepRecorder.PIN_CAP = caps
 
 
-def phase_catchup(cuda, K, card, device="cuda", groups=SCEN_GROUPS):
+def phase_catchup(cuda, K, card, device="cuda", groups=WIDE_GROUPS):
     """Phase 13: the vector engine's follower catch-up on `device`, the join
-    of an empty member over a shared K=8 core at config 6's width (fault
-    1) and the retry storm (fault 6), then the reference bodies of the
-    last eleven test files that drive the vector engine (CATCHUP_FILES),
-    all through run_scenarios. The kernels are held on the recorded
-    states and on those just after each joiner's first reject and each
-    host-log catch-up start."""
+    of an empty member over a shared K=8 core at config 6's engine shape (fault
+    1), the retry storm (fault 6), a member caught up below a rebased
+    window and the same with its inbox piled up (fault 11), a snapshot
+    install whose recovery waits while the step appends on the scalar and
+    the vector engine (fault 9), then the reference bodies of the last
+    eleven test files that drive the vector engine (CATCHUP_FILES), all
+    through run_scenarios. The kernels are held on the recorded states and
+    on those just after each joiner's first reject and first save and each
+    host-log catch-up start. No log reader may raise a log hole and no save
+    may lack its payload anywhere in the phase."""
     t_phase = time.perf_counter()
     log(f"phase 13 card: {card}")
     before = set(sys.modules)
-    with pinned_catchup() as rejected:
-        out = run_scenarios(cuda, K, card, CATCHUP_SCENARIOS, 1300, device, groups)
+    L = _tests_module("torch_log_hole")
+    with pinned_catchup() as rejected, L.hole_watch("dragonboat_tpu_torch") as holes:
+        out = run_scenarios(cuda, K, card, CATCHUP_SCENARIOS, 1300, device, groups,
+                            host_only=HOST_ONLY_SCENARIOS)
     bad = sorted(m for m in set(sys.modules) - before
                  if m.split(".")[0] in ("jax", "dragonboat_tpu"))
     assert not bad, f"phase 13 imported {bad[:5]}"
     out["joins_first_rejects"] = len(rejected)
+    holes = {k: [m for _n, m in v] for k, v in holes.items()}
+    out["log_holes"] = len(holes["log_holes"])
+    out["missing_arena_saves"] = len(holes["missing_saves"])
+    log("catchup holes: " + json.dumps({
+        "log_holes": holes["log_holes"][:5], "missing_arena_saves": holes["missing_saves"][:5],
+        "card": card}))
+    assert not holes["log_holes"], f"phase 13: log holes {holes['log_holes'][:3]}"
+    assert not holes["missing_saves"], f"phase 13: saves without a payload {holes['missing_saves'][:3]}"
     out["seconds"] = round(time.perf_counter() - t_phase, 2)
     return out
 
@@ -3972,7 +4116,9 @@ def main() -> int:
     catch_names = [n for n, _ in CATCHUP_SCENARIOS]
     log(f"catchup: {len(catch_names)} scenarios ("
         + ", ".join(f"{n} {catch[n]['seconds']} s" for n in catch_names)
-        + f"), {catch['joins_first_rejects']} joiners' first rejects, phase "
+        + f"), {catch['joins_first_rejects']} joiners' first rejects, "
+        f"{catch['log_holes']} log holes, {catch['missing_arena_saves']} saves without a "
+        f"payload, phase "
         f"{catch['seconds']} s, whole run {time.perf_counter() - t_run:.1f} s [{card}]")
 
     # the step kernel against its plain version at the shapes the engine
@@ -4142,7 +4288,9 @@ def main() -> int:
             if k not in ("launches", "kernel_vs_plain", "superstep_vs_plain")}
         for n in catch_names}
     kernels["catchup"].update(seconds=catch["seconds"],
-                              joins_first_rejects=catch["joins_first_rejects"])
+                              joins_first_rejects=catch["joins_first_rejects"],
+                              log_holes=catch["log_holes"],
+                              missing_arena_saves=catch["missing_arena_saves"])
     kernels["activation"]["fleet_bring_up_batches"] = {
         n: fleet[n]["activation"] for n in fleet_names if "activation" in fleet[n]}
     log(f"card: {card_line()}")

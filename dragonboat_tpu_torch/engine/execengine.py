@@ -307,6 +307,12 @@ class ExecEngine:
                 node = self.get_node(cid)
                 if node is None or node.stopped:
                     continue
+                if node.ss.recovering_from_snapshot():
+                    # entries queued behind an installed snapshot apply
+                    # only once the snapshot worker has rebuilt the state
+                    # machine from it (a recovery would overwrite what
+                    # they applied); the worker signals task_ready then
+                    continue
                 if not node.sm.loaded(OffloadFrom.COMMIT_WORKER):
                     continue  # lost the race with NodeHost close
                 try:

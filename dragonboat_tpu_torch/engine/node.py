@@ -1009,8 +1009,12 @@ class Node:
             if idx > 0:
                 ss = self.snapshotter.get_most_recent_snapshot()
                 if ss is not None and not ss.is_empty():
+                    # the log window moved to the snapshot on the step
+                    # thread that installed it (process_raft_update); moving
+                    # it again here would drop the entries that thread has
+                    # appended above the snapshot since, and its next
+                    # append would leave a log hole
                     with self._mu:
-                        self.log_reader.apply_snapshot(ss)
                         self.peer.restore_remotes(ss)
                         self.peer.notify_raft_last_applied(
                             self.sm.last_applied_index()

@@ -430,6 +430,22 @@ class VectorNode(Node):
         # writes (Node.__init__ / step_node) are meaningless here
         pass
 
+    def fail_requests(self) -> None:
+        """The engine stopped on a fault (VectorEngine._halt): complete
+        every request in flight as terminated and refuse new ones (a
+        batch submitted now completes as dropped). The node stays
+        registered until NodeHost closes it."""
+        self.incoming_proposals.close()
+        self.incoming_reads.close()
+        for p in (self.pending_proposals, self.pending_read_indexes,
+                  self.pending_config_change, self.pending_snapshot):
+            p.close()
+        with self._batch_mu:
+            handles = list(self._batches.values())
+            self._batches.clear()
+        for h in handles:
+            h.expire()
+
     # ------------------------------------------------------------ status
     def get_leader_id(self) -> int:
         lane = self._vec_lane
@@ -548,8 +564,9 @@ class VectorNode(Node):
                 self.clear_install_aborted()
                 ss = self.snapshotter.get_most_recent_snapshot()
                 if ss is not None and not ss.is_empty():
-                    with self._mu:
-                        self.log_reader.apply_snapshot(ss)
+                    # the log window moves to the snapshot on the engine
+                    # loop, with the device lane (_reconcile_restore): the
+                    # loop is the only writer of this lane's window
                     self.engine.snapshot_restored(self, ss)
                     return
             self.engine.recover_done(self)
@@ -575,10 +592,19 @@ class _Arena:
     resident; unapplied_bytes covers only entries above the applied
     watermark — the real backpressure signal, because applied entries stay
     resident merely as the window's payload cache (the scalar inmem drops
-    them instead, inmemory.go appliedLogTo)."""
+    them instead, inmemory.go appliedLogTo).
+
+    A step can accept a run wider than the ring (a follower's inbox holding
+    several catch-up Replicates: entry i and i+W share a slot). The ring
+    evicts an entry only once it is saved: an entry above the `saved`
+    watermark that a placement displaces waits in `spill` until the save
+    wave has written it (mark_saved), so a save never lacks a payload. A
+    placement at or below the watermark (a new leader overwriting a saved
+    suffix) lowers it, so every entry from there on is unsaved again."""
 
     __slots__ = (
-        "w", "buf", "mem_bytes", "unapplied_bytes", "payload_bytes", "applied"
+        "w", "buf", "mem_bytes", "unapplied_bytes", "payload_bytes", "applied",
+        "saved", "spill",
     )
 
     def __init__(self, window: int) -> None:
@@ -594,12 +620,20 @@ class _Arena:
         # lane_stats/tests and the observer_witness_churn verdict
         self.payload_bytes = 0
         self.applied = 0
+        self.saved = 0
+        self.spill: Dict[int, Entry] = {}
 
     def __setitem__(self, key: int, entry: Entry) -> None:
         slot = key % self.w
         old = self.buf[slot]
         sz = ENTRY_OVERHEAD_BYTES + len(entry.cmd)
+        if key <= self.saved:
+            self.saved = key - 1
+        if self.spill:
+            self.spill.pop(key, None)
         if old is not None:
+            if old.index > self.saved and old.index != key:
+                self.spill[old.index] = old
             osz = ENTRY_OVERHEAD_BYTES + len(old.cmd)
             self.mem_bytes -= osz
             if old.type != EntryType.CONFIG_CHANGE:
@@ -615,24 +649,36 @@ class _Arena:
 
     def get(self, key: int) -> Optional[Entry]:
         e = self.buf[key % self.w]
-        return e if e is not None and e.index == key else None
+        if e is not None and e.index == key:
+            return e
+        return self.spill.get(key) if self.spill else None
 
     def __getitem__(self, key: int) -> Entry:
-        e = self.buf[key % self.w]
-        if e is None or e.index != key:
+        e = self.get(key)
+        if e is None:
             raise KeyError(key)
         return e
 
     def get_run(self, lo: int, hi: int):
         """Entries [lo, hi] inclusive, or (None, missing_index) on a hole."""
-        w, buf = self.w, self.buf
+        w, buf, spill = self.w, self.buf, self.spill
         out = []
         for i in range(lo, hi + 1):
             e = buf[i % w]
             if e is None or e.index != i:
-                return None, i
+                e = spill.get(i) if spill else None
+                if e is None:
+                    return None, i
             out.append(e)
         return out, -1
+
+    def mark_saved(self, index: int) -> None:
+        """The lane's save wave has written its entries through `index`:
+        the spill (entries placed since the last wave that the ring
+        evicted, or stale ones of a truncated suffix) is no longer needed."""
+        self.saved = index
+        if self.spill:
+            self.spill = {}
 
     def mark_applied(self, index: int) -> None:
         """Advance the applied watermark; entries in (applied, index] no
@@ -1041,10 +1087,25 @@ def gather_resp_sends(o: dict, base, lane_by_g) -> List[Tuple[_Lane, Message]]:
     return sends
 
 
+class SaveHoleError(RuntimeError):
+    """A step says to save a run whose payload the lane's arena does not
+    hold. Saving less and acking would break durability, so the engine
+    stops (VectorEngine.fault) instead of carrying on."""
+
+    def __init__(self, lane, lo: int, hi: int, missing_at: int) -> None:
+        super().__init__(
+            f"{lane.node.describe()} missing arena entry {missing_at} for "
+            f"save of [{lo}, {hi}]"
+        )
+        self.lane, self.lo, self.hi, self.missing_at = lane, lo, hi, missing_at
+
+
 def build_save_updates(o: dict, base, lane_by_g):
     """Phase-2 hard-state/entry persistence as (updates, lane_saves): the
     whole step's saves gathered columnar, written downstream as ONE
-    multi-group write wave."""
+    multi-group write wave. Each run comes from its lane's arena, where
+    it waits from its placement to its save wave; a run the arena lacks
+    raises SaveHoleError."""
     updates: List[Update] = []
     lane_saves: List[Tuple[_Lane, List[Entry], State]] = []
     gs = np.nonzero((o["save_from"] > 0) | o["hard_changed"])[0]
@@ -1068,11 +1129,7 @@ def build_save_updates(o: dict, base, lane_by_g):
         if sf > 0:
             ents, missing_at = lane.arena.get_run(b + sf, b + st_)
             if ents is None:
-                _plog.errorf(
-                    "%s missing arena entry %d for save",
-                    lane.node.describe(), missing_at,
-                )
-                ents = []
+                raise SaveHoleError(lane, b + sf, b + st_, missing_at)
         state = State(
             term=term,
             vote=lane.rev.get(vote_slot - 1, 0) if vote_slot > 0 else 0,
@@ -1233,7 +1290,11 @@ class VectorEngine:
             # K=1 overlap: steps decoded while the next step was already
             # dispatched (the rest were drained by _flush_pending)
             "steps_pipelined": 0,
+            # 1 once the loop stopped on a save it could not make (_halt)
+            "faults": 0,
         }
+        # the SaveHoleError that stopped the loop, or None (_halt)
+        self.fault: Optional[BaseException] = None
         # ---- tick-fairness watchdog (ROADMAP seed flake) -----------------
         # Inter-iteration latency vs the host's tick period, a starvation
         # gauge, and an enforced yield when a long kernel step starved a
@@ -1833,6 +1894,9 @@ class VectorEngine:
             self._last_tick_burst = 0
             try:
                 self._run_once()
+            except SaveHoleError as e:
+                self._halt(e)
+                break
             except Exception:
                 import traceback
 
@@ -1847,10 +1911,28 @@ class VectorEngine:
                 self._pending = None
             else:
                 self._flush_pending()  # the last step's saves must land
+        except SaveHoleError as e:
+            self._halt(e)
         except Exception:
             import traceback
 
             traceback.print_exc()
+
+    def _halt(self, e: SaveHoleError) -> None:
+        """Durability first: nothing of the step that lacks a run is saved
+        or acked, and the loop stops rather than step past the hole. Every
+        request in flight on the core's nodes completes as terminated, and
+        new ones raise ErrClusterClosed: with the loop stopped no clock
+        ticks, so they would otherwise never time out. `fault` and the
+        `faults` step stat (NodeHost's engine_step_faults gauge) say so."""
+        self.fault = e
+        self._sstats["faults"] = 1
+        self._discard_pending = True
+        _plog.errorf("vector engine stopped: %s", e)
+        with self._lanes_mu:
+            nodes = [lane.node for lane in self._lanes.values()]
+        for node in nodes:
+            node.fail_requests()
 
     def snapshot_status_ready(self, node) -> None:
         with self._snap_status_mu:
@@ -3114,6 +3196,7 @@ class VectorEngine:
         for lane, ents, state in lane_saves:
             if ents:
                 lane.node.log_reader.append(ents)
+                lane.arena.mark_saved(ents[-1].index)
             lane.node.log_reader.set_state(state)
 
     def _decode_send_post(self, o: dict) -> None:
@@ -3831,6 +3914,8 @@ class VectorEngine:
             if dev_first <= di <= dev_last:
                 ring_terms[di % W] = e.term
                 ring_cc[di % W] = e.type == EntryType.CONFIG_CHANGE
+        # the replayed entries come from the log: all saved
+        lane.arena.mark_saved(ents[-1].index if ents else 0)
         # arena holds nothing at or below the snapshot: seed the applied
         # watermark there directly (no entries below it to discount) so
         # the first phase-4 mark_applied walks the window, not the whole
@@ -4246,6 +4331,8 @@ class VectorEngine:
         lane = self._lane_of(node)
         if lane is None:
             return
+        with node._mu:
+            node.log_reader.apply_snapshot(ss)
         g = lane.g
         P = self.kcfg.peers
         mem = ss.membership or node.sm.get_membership()
@@ -4261,6 +4348,7 @@ class VectorEngine:
         # the watermark keeps the next phase-4 mark_applied from walking
         # the whole history from zero (same as the activation path)
         lane.arena.applied = max(ss.index, 0)
+        lane.arena.saved = max(ss.index, 0)
         lane.catchup = {}
         lane.snap_inflight = {}
         self._catchups.discard(lane)
@@ -4376,6 +4464,12 @@ class VectorEngine:
             for cid in cids:
                 node = self.get_node(cid)
                 if node is None or node.stopped:
+                    continue
+                if node.ss.recovering_from_snapshot():
+                    # entries queued behind an installed snapshot apply
+                    # only once the snapshot worker has rebuilt the state
+                    # machine from it (a recovery would overwrite what
+                    # they applied); the worker signals task_ready then
                     continue
                 if not node.sm.loaded(OffloadFrom.COMMIT_WORKER):
                     continue  # lost the race with NodeHost close
@@ -4650,7 +4744,7 @@ class VectorEngine:
         plane's ordering barrier: after NodeHost.stop_cluster /
         crash_cluster drain, the freed lane is on the free list and a
         restart_cluster can reuse it immediately."""
-        if self._stopped.is_set():
+        if self._stopped.is_set() or self.fault is not None:
             return
         ev = threading.Event()
         self._reconq.append(("barrier", ev))

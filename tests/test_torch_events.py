@@ -10,9 +10,9 @@ The test below runs the health-metrics body through both packages'
 NodeHosts and holds equal the gauge families of their expositions, with
 the once-a-second gauges exported just before each write (a histogram or
 counter family appears once its first event is observed, which depends on
-timing here). The two differences by design are the ones
-tests/test_torch_observability.py names: the port's pipelined-step gauge,
-and the compile-cache gauge that only a process which compiled something
+timing here). The differences by design are the ones
+tests/test_torch_observability.py names: the port's pipelined-step and
+engine-fault gauges, and the compile-cache gauge that only a process which compiled something
 writes (the JAX package jits its step on the CPU; the port builds
 nothing there)."""
 import importlib
@@ -23,7 +23,8 @@ from torch_twin import one_thread, port_copy, reference_tests  # noqa: F401
 R = port_copy("test_events")
 globals().update(reference_tests(R))
 
-PORT_ONLY = {"# TYPE dragonboat_tpu_engine_step_steps_pipelined gauge"}
+PORT_ONLY = {"# TYPE dragonboat_tpu_engine_step_steps_pipelined gauge",
+             "# TYPE dragonboat_tpu_engine_step_faults gauge"}
 REFERENCE_ONLY = {"# TYPE dragonboat_tpu_engine_compile_cache_entries gauge"}
 
 

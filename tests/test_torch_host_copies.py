@@ -64,32 +64,96 @@ def test_copy_never_mentions_jax(name):
     assert "jax" not in src.lower(), name
 
 
-@pytest.mark.parametrize("name", COPIED)
-def test_copy_keeps_the_reference_code(name):
-    """Only comment and docstring text may differ: the code tokens of each
-    copy are the reference's, token for token."""
+# Faults of the reference repaired in a copy (ROADMAP §3 fault 9): for each
+# module, the spans of code whose tokens differ, as (the reference's code,
+# the port's code). Each reference span occurs once in the reference; with
+# it replaced by the port's span, every token of the copy is the
+# reference's.
+REPAIRED = {
+    # a snapshot worker's recovery moved the log window back to the
+    # installed snapshot over entries the step thread had appended since
+    "engine.node": [(
+        """
+with self._mu:
+    self.log_reader.apply_snapshot(ss)
+    self.peer.restore_remotes(ss)
+""", """
+with self._mu:
+    self.peer.restore_remotes(ss)
+""")],
+    # the task worker applied entries queued behind an installed snapshot
+    # while the snapshot worker recovered from it, and the recovery
+    # overwrote them
+    "engine.execengine": [(
+        """
+if node is None or node.stopped:
+    continue
+if not node.sm.loaded(OffloadFrom.COMMIT_WORKER):
+""", """
+if node is None or node.stopped:
+    continue
+if node.ss.recovering_from_snapshot():
+    continue
+if not node.sm.loaded(OffloadFrom.COMMIT_WORKER):
+""")],
+}
+
+
+def _code_tokens(src):
     import io
     import tokenize
 
-    def code_tokens(path):
-        with open(path) as f:
-            toks = tokenize.generate_tokens(io.StringIO(f.read()).readline)
-            out, prev = [], None
-            for t in toks:
-                if t.type in (tokenize.COMMENT, tokenize.NL, tokenize.NEWLINE,
-                              tokenize.INDENT, tokenize.DEDENT):
-                    prev = t.type if t.type != tokenize.COMMENT else prev
-                    continue
-                # a string standing alone as a statement is a docstring
-                if t.type == tokenize.STRING and prev in (
-                        None, tokenize.NEWLINE, tokenize.INDENT, tokenize.DEDENT):
-                    prev = tokenize.NEWLINE
-                    continue
-                out.append(t.string)
-                prev = t.type
-            return out
+    toks = tokenize.generate_tokens(io.StringIO(src).readline)
+    out, prev = [], None
+    for t in toks:
+        if t.type in (tokenize.COMMENT, tokenize.NL, tokenize.NEWLINE,
+                      tokenize.INDENT, tokenize.DEDENT, tokenize.ENDMARKER):
+            prev = t.type if t.type != tokenize.COMMENT else prev
+            continue
+        # a string standing alone as a statement is a docstring
+        if t.type == tokenize.STRING and prev in (
+                None, tokenize.NEWLINE, tokenize.INDENT, tokenize.DEDENT):
+            prev = tokenize.NEWLINE
+            continue
+        out.append(t.string)
+        prev = t.type
+    return out
 
-    assert code_tokens(source_path(PORT, name)) == code_tokens(source_path(REF, name))
+
+def _file_tokens(path):
+    with open(path) as f:
+        return _code_tokens(f.read())
+
+
+def _find(toks, span):
+    """The offsets where the token list `span` occurs in `toks`."""
+    n = len(span)
+    return [i for i in range(len(toks) - n + 1) if toks[i:i + n] == span]
+
+
+@pytest.mark.parametrize("name", COPIED)
+def test_copy_keeps_the_reference_code(name):
+    """Only comment and docstring text may differ: the code tokens of each
+    copy are the reference's, token for token, but for the spans REPAIRED
+    names."""
+    ref = _file_tokens(source_path(REF, name))
+    for ref_src, port_src in REPAIRED.get(name, ()):
+        span = _code_tokens(ref_src)
+        at = _find(ref, span)
+        assert len(at) == 1, (name, ref_src, at)
+        ref = ref[:at[0]] + _code_tokens(port_src) + ref[at[0] + len(span):]
+    assert _file_tokens(source_path(PORT, name)) == ref
+
+
+@pytest.mark.parametrize("name", sorted(REPAIRED))
+def test_repaired_spans_are_the_only_difference(name):
+    """Each repaired span is a real difference: the reference's span is
+    not in the copy, and the copy's span is not in the reference."""
+    ref, port = _file_tokens(source_path(REF, name)), _file_tokens(source_path(PORT, name))
+    assert ref != port
+    for ref_src, port_src in REPAIRED[name]:
+        assert not _find(port, _code_tokens(ref_src)), name
+        assert not _find(ref, _code_tokens(port_src)), name
 
 
 # drawn at random per process (trace-id salt), not a table; a path from

@@ -14,10 +14,11 @@ port's `dragonboat_tpu_torch.e2e`, whose `_lane_report` and
 through both packages and holds equal what does not depend on the wall
 clock: the metric families of `write_health_metrics`'s exposition and
 their label keys, the keys of `engine.step_stats()`, and the counts of the
-commit, apply and read histograms. Two differences are by design, and the
-test names them: the port's `step_stats` also counts the steps decoded
+commit, apply and read histograms. Three differences are by design, and
+the test names them: the port's `step_stats` also counts the steps decoded
 pipelined (`steps_pipelined`, hence its `engine_step_steps_pipelined`
-gauge), and `engine_compile_cache_entries` is written only by a process
+gauge) and says whether the engine stopped on a save whose payload a lane
+lacked (`faults`, hence `engine_step_faults`), and `engine_compile_cache_entries` is written only by a process
 that compiled or built something (`profile.write_exposition`): the JAX
 package jits its step on the CPU, the port builds no kernel there. The
 tests after it hold the packages equal on seeded inputs: the exposition
@@ -42,8 +43,9 @@ def _ref():
 
 
 # what the port adds to step_stats, and the gauge each such key becomes
-PORT_ONLY_STATS = {"steps_pipelined"}
-PORT_ONLY_FAMILIES = {"dragonboat_tpu_engine_step_steps_pipelined"}
+PORT_ONLY_STATS = {"steps_pipelined", "faults"}
+PORT_ONLY_FAMILIES = {"dragonboat_tpu_engine_step_steps_pipelined",
+                      "dragonboat_tpu_engine_step_faults"}
 BUILDS = "dragonboat_tpu_engine_compile_cache_entries"
 
 
