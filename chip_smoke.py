@@ -27,8 +27,8 @@ replicas, 8 (ReadIndex reads, then lease reads, 1024 groups x 3) and 7
 sessions, placement planes), with gates on elections, commits, replica
 convergence, a linearizable history, syncs outside the blessed seams,
 kernel builds, each config's reads, lease serves, drops, snapshots,
-membership changes and sessions, and the kernels each path launched; it
-also times lane activation. Phase 6 puts the fault plane on the card:
+membership changes and sessions, and the kernels each path launched
+(the step, at K=8 the router, and the activation kernel). Phase 6 puts the fault plane on the card:
 one seed of the chaos matrix (3 hosts on one core, 30% of replication
 dropped, seeded partitions; converged and linearizable) and the overload
 storm's graceful-degradation verdict on one group. Phase 7 runs the
@@ -100,9 +100,21 @@ the last eleven test files that drive the vector engine (restarts, 50
 lane restarts with no growth of the card's allocated memory, batched
 proposals, snapshot requests and external files, compression, the rate
 limiter, SQLite storage, chaos, the tick clamp and starvation gauges,
-health metrics, full-width ReadIndex contexts). The kernels are also
-held on the super-steps just after each joiner's first reject and each
-host-log catch-up start.
+health metrics, full-width ReadIndex contexts; the rate limiter's burst
+prints the in-memory log size it reached beside its limit). The kernels
+are also held on the super-steps just after each joiner's first reject
+and each host-log catch-up start. Phase 13 ends with three start/stop
+cycles of 3 NodeHosts x 32 groups in each of three shapes (each host on
+its own K=1 engine, one shared K=8 core, that core over 4 logical
+shards): after every stop the card's allocated bytes are those before the
+first start (ROADMAP §3 fault 13), and the blocks a stop leaves are listed
+by allocating frame. Lane activation runs as one kernel
+(csrc/activate.cu) a batch: phase 3 holds it against its plain version,
+bit for bit on every plane, at config 2's engine shape (3,072 lanes) at
+three buckets and at 50,000 lanes, and times it, the plain version and
+the engine's host side of one batch; phase 12 holds the first four
+activation batches of its bulk start of 1,024 x 3 against the plain
+version.
 After
 each K=1 engine run of phases 5-9 the step kernel is held against its
 plain version on states that run stepped, at its own lanes, window and
@@ -509,8 +521,8 @@ def check_superstep_launches(counts, plain_calls, inner_steps, n):
     and one of each scatter pass unsharded and n of each sharded, n
     gathers (sharded only: one per destination shard), and one plain step
     on the plain path."""
-    for name, c in counts.items():
-        assert c > 0, f"the super-step path launched no {name} kernel"
+    for name in MESH_KERNELS:
+        assert counts[name] > 0, f"the super-step path launched no {name} kernel"
     for name in ("step_batch", "route_columns", "route_index", "route_scatter"):
         assert counts[name] == inner_steps * (1 + n), counts
     assert counts["ring_gather"] == inner_steps * n, counts
@@ -995,8 +1007,8 @@ E2E_CONFIGS = (2, 6, 1, 3, 4, 5, 8, 7)
 E2E_GROUPS = {3: 512, 4: 512, 5: 512}
 E2E_WINDOW_S = {1: 4.0, 2: 5.0, 3: 4.0, 4: 4.0, 5: 4.0, 6: 5.0, 7: 4.0, 8: 4.0}
 # the kernels each config's engine path must launch
-E2E_KERNELS = {1: ("step_batch",),
-               8: ("step_batch", "route_columns", "route_index", "route_scatter")}
+E2E_KERNELS = {1: ("step_batch", "activate"),
+               8: ("step_batch", "route_columns", "route_index", "route_scatter", "activate")}
 
 
 # what the kernels line carries of each engine run
@@ -1020,29 +1032,200 @@ E2E_TRAFFIC_KEYS = ("groups", "replicas", "nominal_groups", "scaled_down", "read
                     "serving_bulk_p99_s", "serving_tenant_latency", "migrations_started")
 
 
-def time_activation(kb, cfg, batch=4096):
-    """activate_lanes (the engine's lane activation, torch index_put_ ops)
-    on a fresh cfg.groups-lane state: one batch of `batch` indexes, every
-    lane once and the rest repeating the last lane as the engine pads. Its
-    device time per call and the bound of the bytes it moves (each value
-    row read once, each lane row of every plane it writes written once)."""
-    from dragonboat_tpu_torch.engine import vector
+# lane activation on the card (csrc/activate.cu): config 2's engine shape
+# (3,072 lanes, P=4, W=256) at buckets 1, 16 and 4,096 (a bucket past the
+# lanes repeats the last lane, as the engine pads), and 50,000 lanes at P=5
+# at bucket 4,096; (lanes, P, W, buckets)
+ACT_CASES = ((3072, 4, 256, (1, 16, 4096)), (50_000, 5, 256, (4096,)))
+ACT_HOST_LANES = 1024  # the host-side batch timed against the plain path
+ACT_SEED = 20261017
+
+
+def _act_cfg(lanes, P, W):
+    from dragonboat_tpu_torch.ops.state import KernelConfig
+
+    return KernelConfig(groups=lanes, peers=P, log_window=W, inbox_depth=4,
+                        max_entries_per_msg=64, readindex_depth=4)
+
+
+def _act_state(cfg, rng, device="cuda"):
+    """A state of cfg's shapes with every plane seeded (int32 planes in
+    [-5, 300), bools at one half), on `device`."""
     from dragonboat_tpu_torch.ops.state import init_state
 
-    s = init_state(cfg, device="cuda")
-    G = cfg.groups
-    gi = torch.arange(batch, device="cuda").clamp_(max=G - 1)
-    v = {name: getattr(s, name)[gi].clone() for name in vector._ACT_SET}
-    v["next"] = s.next[gi, 0].clone()
-    ms = kb.device_ms(lambda: vector.activate_lanes(s, gi, v), lambda: None, 20)["total"]
-    row = lambda t: t[0].numel() * t.element_size()
-    lanes = min(batch, G)
-    written = sum(row(getattr(s, n)) for n in
-                  vector._ACT_SET + vector._ACT_ZERO + ("active", "next", "rstate"))
-    nbytes = lanes * written + sum(t.numel() * t.element_size() for t in v.values()) \
-        + gi.numel() * gi.element_size()
-    return {"batch": batch, "lanes": G, "ms": ms, "bytes": nbytes,
-            "bound_ms": nbytes / kb.HBM_BYTES_PER_S * 1e3}
+    s = init_state(cfg, device="cpu")
+    for t in s:
+        if t.dtype == torch.bool:
+            t.copy_(torch.from_numpy(rng.random(tuple(t.shape)) < 0.5))
+        elif t.dtype == torch.int32:
+            t.copy_(torch.from_numpy(rng.integers(-5, 300, tuple(t.shape)).astype(np.int32)))
+    return type(s)(*(t.to(device) for t in s))
+
+
+def _act_batch(rng, lanes, n, P, W):
+    """n distinct lane rows of `lanes` and their bring-up values, one dict
+    per lane as the engine's _compute_activation gives them."""
+    from dragonboat_tpu_torch.ops import cuda
+
+    rows = rng.choice(lanes, n, replace=False).tolist()
+    keys, cols = [], []
+    for k, dt in cuda.ACT_COLUMNS:
+        keys.append(k)
+        cols.append((rng.random(n) < 0.5 if dt == torch.bool
+                     else rng.integers(0, 500, n)).tolist())
+    for k, dt in cuda.ACT_ROWS:
+        w = W if k.startswith("log_") else P
+        keys.append(k)
+        cols.append(list(rng.random((n, w)) < 0.5 if dt == torch.bool
+                         else rng.integers(0, 500, (n, w)).astype(np.int32)))
+    return rows, [dict(zip(keys, lane)) for lane in zip(*cols)]
+
+
+def _act_plain_inputs(rows, vals, bucket, device="cuda"):
+    """The batch as the plain version takes it: the padded lane rows and
+    one tensor per value on the card, built column by column from the
+    lanes' values (not through the packed layout)."""
+    from dragonboat_tpu_torch.ops import cuda
+
+    pad = bucket - len(vals)
+    gi = torch.tensor(rows + [rows[-1]] * pad, dtype=torch.int64, device=device)
+    v = {}
+    for k, dt in cuda.ACT_COLUMNS + cuda.ACT_ROWS:
+        a = np.stack([np.asarray(x[k]) for x in vals]).astype(
+            bool if dt == torch.bool else np.int32)
+        if pad:
+            a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+        v[k] = torch.from_numpy(a).to(device)
+    return gi, v
+
+
+def act_mismatches(a, b):
+    """The planes where two states differ, and the largest absolute
+    difference over them."""
+    bad = [f for f in a._fields if not torch.equal(getattr(a, f), getattr(b, f))]
+    err = max([int((as_i64(getattr(a, f)) - as_i64(getattr(b, f))).abs().max()) for f in bad]
+              + [0])
+    return bad, err
+
+
+def act_bytes(s, rows, bucket):
+    """The least bytes one batch of `rows` padded to `bucket` moves: the
+    lane rows read once, the packed values of each distinct lane read once
+    (csrc/activate.cu skips a padding row before it reads its values) and
+    every plane activation writes written once for each distinct lane."""
+    from dragonboat_tpu_torch.ops import cuda
+
+    lanes = len(set(rows))
+    spans, _ = cuda.packed_spans(cuda.activation_layout(
+        bucket, s.member.shape[1], s.log_term.shape[1]))
+    read = sum(nb if name == "rows" else nb // bucket * lanes for name, _sh, _dt, _o, nb in spans)
+    names = cuda.ACT_SET + cuda.ACT_ZERO + ("active", "next", "rstate")
+    row = sum(getattr(s, f)[0].numel() * getattr(s, f).element_size() for f in names)
+    return read + lanes * row
+
+
+def _old_activate_rows(vector, fake, sh, rows, vals):
+    """The engine's activation batch before csrc/activate.cu, the plain
+    path's host side: every value column through its own pinned staging
+    and async copy (engine._h2d), then one index_put_ per plane."""
+    bucket = vector.activation_bucket(len(vals), sh.hi - sh.lo)
+    pad = bucket - len(vals)
+    gi = np.asarray(rows + [rows[-1]] * pad, np.int64)
+    h2d = lambda a: vector.VectorEngine._h2d(fake, a, sh)
+    v = {}
+    for key, dtype in vector.VectorEngine._ACT_COLS:
+        a = np.asarray([x[key] for x in vals], dtype)
+        v[key] = h2d(np.concatenate([a, np.repeat(a[-1:], pad, 0)]) if pad else a)
+    for key, dtype in vector.VectorEngine._ACT_MATS:
+        a = np.stack([x[key] for x in vals]).astype(dtype)
+        v[key] = h2d(np.concatenate([a, np.repeat(a[-1:], pad, 0)]) if pad else a)
+    vector.activate_lanes_reference(sh.state, h2d(gi), v)
+
+
+def phase_activation(cuda, kb, card, device="cuda"):
+    """Lane activation on the card: csrc/activate.cu against
+    activate_lanes_reference on seeded states (ACT_CASES), bit for bit on
+    every plane, through the engine's packing and one copy of the packed
+    buffer (activate_packed) and through activate_lanes (values as
+    separate tensors, packed on the card); the kernel's and the plain
+    version's device time per batch (profiler) at config 2's shape with
+    its byte bound; then the host ms of one engine batch of
+    ACT_HOST_LANES lanes (VectorEngine._activate_rows: pack, copy and
+    launch) against the plain path's per-column copies and index_put_
+    launches, in turns in this call. On the CPU (a rehearsal) the plain
+    versions run in place of the kernel and nothing is timed."""
+    import types as _types
+
+    from dragonboat_tpu_torch.engine import vector
+    from dragonboat_tpu_torch.ops.kernel import clone_state
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(ACT_SEED)
+    cases, bad, err, timed = [], set(), 0, {}
+    for lanes, P, W, buckets in ACT_CASES:
+        cfg = _act_cfg(lanes, P, W)
+        s0 = _act_state(cfg, rng, device)
+        for bucket in buckets:
+            n = min(bucket, lanes)
+            rows, vals = _act_batch(rng, lanes, n, P, W)
+            packed = vector.pack_activation(rows, vals, bucket, P, W).to(device)
+            gi, v = _act_plain_inputs(rows, vals, bucket, device)
+            want = vector.activate_lanes_reference(clone_state(s0), gi, v)
+            got = vector.activate_packed(clone_state(s0), packed, bucket)
+            via_dict = vector.activate_lanes(clone_state(s0), gi, v)
+            sync()
+            for what, x in (("packed", got), ("lanes", via_dict)):
+                b, e = act_mismatches(want, x)
+                bad |= {f"{lanes}x{bucket}.{what}.{f}" for f in b}
+                err = max(err, e)
+            cases.append({"lanes": lanes, "P": P, "W": W, "bucket": bucket, "rows": n,
+                          "mismatched_planes": sorted(
+                              f for f in bad if f.startswith(f"{lanes}x{bucket}."))})
+            if on_card and (lanes, bucket) in ((3072, 4096), (50_000, 4096)):
+                work = clone_state(s0)
+                ms = kb.device_ms(lambda: cuda.activate_cuda(work, packed, bucket), lambda: None,
+                                  20, ["activate_kernel"])["activate_kernel"]
+                plain_ms = kb.device_ms(lambda: vector.activate_lanes_reference(work, gi, v),
+                                        lambda: None, 20)["total"]
+                nbytes = act_bytes(s0, rows, bucket)
+                timed[f"{lanes}x{bucket}"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                    "bound_ms": nbytes / kb.HBM_BYTES_PER_S * 1e3}
+    # the engine's host side: one batch of ACT_HOST_LANES lanes, pack +
+    # copy + launch against the plain path's per-column staging, in turns
+    lanes, P, W, _ = ACT_CASES[0]
+    fake = _types.SimpleNamespace(kcfg=_act_cfg(lanes, P, W), _cuda=on_card)
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    sh = vector._Shard(dev, 0, lanes, None, True)
+    sh.state = _act_state(fake.kcfg, rng, device)
+    rows, vals = _act_batch(rng, lanes, min(ACT_HOST_LANES, lanes), P, W)
+    host = {"new": [], "plain": []}
+    for turn in ("new", "plain", "plain", "new") * 5:
+        sync()
+        t = time.perf_counter()
+        if turn == "new":
+            vector.VectorEngine._activate_rows(fake, sh, rows, vals)
+        else:
+            _old_activate_rows(vector, fake, sh, rows, vals)
+        host[turn].append((time.perf_counter() - t) * 1e3)
+    sync()
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    r = {"cases": len(cases), "checks": 2 * len(cases), "mismatched_fields": sorted(bad),
+         "max_abs_err": err, "timed": timed, "host_lanes": ACT_HOST_LANES,
+         "host_ms": med(host["new"]), "plain_host_ms": med(host["plain"]),
+         "seconds": round(time.perf_counter() - t0, 2), "card": card}
+    log("activation: " + json.dumps({**r, "by_case": cases}))
+    for key, x in timed.items():
+        log(f"activate @ {key} (lanes x bucket): kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} "
+            f"ms of device time, bound {x['bound_ms']:.5f} ms ({x['bytes']} B) [{card}]")
+    log(f"activate host side @ {ACT_HOST_LANES} lanes: pack + copy + launch {r['host_ms']:.3f} "
+        f"ms, plain per-column copies + index_put_ {r['plain_host_ms']:.3f} ms (medians of "
+        f"{len(host['new'])}) [{card}]")
+    if bad:
+        raise AssertionError(f"activation kernel disagrees with the plain version on {sorted(bad)}")
+    return r
 
 
 def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
@@ -1074,9 +1257,18 @@ def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
         cuda.LAUNCHES[name] = 0
     K.REFERENCE_CALLS["step_batch"] = 0
     k = spec.get("steps_per_sync", 1)
-    with StepRecorder(K) as rec:
+    rebases = []
+
+    def counted(f):
+        def call(*a, **kw):
+            rebases.append(1)
+            return f(*a, **kw)
+        return call
+
+    with StepRecorder(K) as rec, _patched([(vector, "rebase", counted)]):
         r = e2e.run_ladder_config(config, groups=groups, duration=duration, device=device)
     launches = dict(cuda.LAUNCHES)
+    r["rebase_calls"] = len(rebases)
     r["plain_step_calls"] = K.REFERENCE_CALLS["step_batch"]
     if device == "cuda" and k == 1:
         # after the counts are read: these calls are not the path's
@@ -3363,6 +3555,49 @@ def scen_bulk_fleet(workdir, device):
     return out
 
 
+ACT_HELD = 4  # activation batches of a bulk start held against the plain version
+
+
+@contextlib.contextmanager
+def held_activations(cap=ACT_HELD):
+    """The first `cap` activation batches of the block
+    (VectorEngine._activate_rows), each held against the plain version:
+    the shard's state is cloned before the batch runs, the plain version
+    (activate_lanes_reference) writes the same lanes and values, built
+    column by column, into the clone, and the state just after the batch
+    is cloned too; the clones are compared after the block, off the
+    engine's loop. Yields {"batches": [{lanes, bucket, mismatched_planes}]}."""
+    from dragonboat_tpu_torch.engine.vector import (
+        VectorEngine,
+        activate_lanes_reference,
+        activation_bucket,
+    )
+    from dragonboat_tpu_torch.ops.kernel import clone_state
+
+    kept, got = [], {"batches": []}
+
+    def wrap(f):
+        def call(self, sh, rows, vals):
+            if len(kept) >= cap:
+                return f(self, sh, rows, vals)
+            bucket = activation_bucket(len(vals), sh.hi - sh.lo)
+            with sh.on():
+                gi, v = _act_plain_inputs(rows, vals, bucket, sh.device)
+                want = activate_lanes_reference(clone_state(sh.state), gi, v)
+            f(self, sh, rows, vals)
+            with sh.on():
+                kept.append((len(rows), bucket, want, clone_state(sh.state)))
+        return call
+
+    try:
+        with _patched([(VectorEngine, "_activate_rows", wrap)]):
+            yield got
+    finally:
+        for n, bucket, want, after in kept:
+            got["batches"].append({"lanes": n, "bucket": bucket,
+                                   "mismatched_planes": act_mismatches(want, after)[0]})
+
+
 def scen_bulk_shared(workdir, device, groups):
     """(f) at WIDE_GROUPS' width: `groups` groups x 3 replicas on one shared
     core (phase 11's host and group shapes, metrics on), each of the 3
@@ -3383,14 +3618,23 @@ def scen_bulk_shared(workdir, device, groups):
             hosts[n] = _scen_host("obs", n, reg, workdir, groups, device, enable_metrics=True)
         vector.ACTIVATIONS.clear()
         t0 = time.monotonic()
-        for n, nh in hosts.items():
-            nh.start_clusters([(dict(addrs), False, lambda c, _n: kv(), _scen_cfg(n, c))
-                               for c in range(1, groups + 1)])
-        start_s = time.monotonic() - t0
-        elect_s, leaders = _elect_all(hosts[1], groups, FLEET_ELECT_S - start_s)
+        with held_activations() as held:
+            for n, nh in hosts.items():
+                nh.start_clusters([(dict(addrs), False, lambda c, _n: kv(), _scen_cfg(n, c))
+                                   for c in range(1, groups + 1)])
+            start_s = time.monotonic() - t0
+            elect_s, leaders = _elect_all(hosts[1], groups, FLEET_ELECT_S - start_s)
+        act = _activation_batches()
+        log("bulk activation held: " + json.dumps({
+            **held, "mismatched_planes": sum(len(b["mismatched_planes"]) for b in held["batches"]),
+            "of_batches": act["batches"]}))
         out = {"groups": groups, "lanes": 3 * groups, "start_clusters_s": round(start_s, 3),
-               "elect_all_s": round(start_s + elect_s, 3), "activation": _activation_batches(),
+               "elect_all_s": round(start_s + elect_s, 3), "activation": act,
+               "activation_held": held,
                "verdicts": {"every_group_elected": len(leaders) == groups,
+                            "first_activation_batches_equal_plain": (
+                                len(held["batches"]) == min(ACT_HELD, act["batches"])
+                                and not any(b["mismatched_planes"] for b in held["batches"])),
                             "census_from_engine_device": (hosts[1].engine.core.device.type
                                                           == torch.device(device).type)}}
         if 1 in leaders:
@@ -3664,6 +3908,14 @@ def scen_files(workdir, device, name, files, bodies):
         fixture = getattr(M, "_clear", None)  # test_compression's autouse fixture
         with contextlib.contextmanager(fixture.__wrapped__)() if fixture else \
                 contextlib.nullcontext():
+            if test == "test_nodehost_rate_limit_e2e":
+                # ROADMAP §3 fault 16: the in-memory log size the burst
+                # reached beside max_in_mem_log_size, on a line of its own
+                with _tests_module("torch_twin").in_mem_log_watch() as got:
+                    _held(out, test, fn, *args)
+                out["in_mem_log"] = got
+                log(f"rate limit burst: {json.dumps({**got, 'passed': out['verdicts'][test]})}")
+                continue
             if test != "test_vector_lane_reuse_50_restarts_no_growth" or device != "cuda":
                 _held(out, test, fn, *args)
                 continue
@@ -3813,6 +4065,132 @@ CATCHUP_SCENARIOS = (
     for name, files, bodies in CATCHUP_FILES)
 
 
+# ROADMAP §3 fault 13: three start/stop cycles of each shape in one process
+# (name, steps_per_sync, one core shared by the three hosts, logical shards)
+TEARDOWN_SHAPES = (("sole_k1", 1, False, 0), ("shared_k8", 8, True, 0),
+                   ("shared_k8_4_shards", 8, True, 4))
+TEARDOWN_GROUPS = 32
+TEARDOWN_CYCLES = 3
+TEARDOWN_RTT_MS = 5  # elections of 20 ticks, heartbeats of 2
+
+
+def _allocated(device):
+    """The card's allocated bytes once every queued kernel ran; None on the
+    CPU."""
+    if device != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _live_blocks():
+    """address -> (bytes, allocating frames) of every allocated block on the
+    card (torch.cuda.memory._snapshot; frames only where the memory
+    history records them, as tree_probe.py's teardown does)."""
+    out = {}
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                frames = [f"{pathlib.Path(f['filename']).name}:{f['line']}:{f['name']}"
+                          for f in b.get("frames", ())
+                          if "dragonboat_tpu_torch" in f["filename"]
+                          or f["filename"].endswith("chip_smoke.py")]
+                out[b["address"]] = (b["size"], frames[:4])
+    return out
+
+
+def teardown_cycles(device, card, shapes=TEARDOWN_SHAPES, groups=TEARDOWN_GROUPS,
+                    cycles=TEARDOWN_CYCLES, workdir=None):
+    """ROADMAP §3 fault 13 on `device`: for each shape, `cycles` start/stop
+    cycles in this process of 3 NodeHosts x `groups` groups (each host its
+    own K=1 engine, or one core shared by the three at K=8, also over 4
+    logical shards of the card), each cycle electing every group and
+    committing a proposal before every host stops. On the card the
+    allocated bytes are read before the first start and after each stop,
+    first before and then after a full collection; where a stop left
+    bytes, the blocks it left are summed by allocating frame
+    (`left_by_stop`). `device_memory_freed_on_stop` holds for a shape when
+    every read after a stop, before the collection and after it, equals the
+    read before the first start: a stop frees what the engine allocated,
+    without waiting for the cycle collector, and no block is kept once per
+    process (PERF.md §7)."""
+    import gc
+    import tempfile
+
+    from dragonboat_tpu_torch.config import Config, EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.engine import vector
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
+
+    t0 = time.perf_counter()
+    out = {"groups": groups, "cycles": cycles, "card": card}
+    for name, steps, shared, shards in shapes:
+        gc.collect()
+        before = _allocated(device)
+        base = _live_blocks() if device == "cuda" else {}
+        rec = {"before": before, "after_no_collect": [], "after": []}
+        orig = vector.mesh_devices
+        if shards:
+            vector.mesh_devices = lambda d, n=shards: (d,) * n
+        try:
+            for cycle in range(cycles):
+                reg, kv, hosts = _Registry(), _kv_sm(), {}
+                addrs = {n: f"td{n}:1" for n in (1, 2, 3)}
+                with tempfile.TemporaryDirectory(prefix="dbtorch-teardown-", dir=workdir) as d:
+                    try:
+                        for n in addrs:
+                            hosts[n] = NodeHost(NodeHostConfig(
+                                deployment_id=13, rtt_millisecond=TEARDOWN_RTT_MS,
+                                nodehost_dir=f"{d}/td{n}", raft_address=addrs[n],
+                                raft_rpc_factory=lambda a: loopback_factory(a, reg),
+                                engine=EngineConfig(
+                                    kind="vector", max_groups=(3 if shared else 1) * groups,
+                                    max_peers=4, log_window=256, inbox_depth=4,
+                                    max_entries_per_msg=64, steps_per_sync=steps,
+                                    share_scope=f"teardown-{name}-{cycle}" if shared else None,
+                                    shard_over_mesh=bool(shards), device=device)))
+                        for n, nh in hosts.items():
+                            nh.start_clusters([
+                                (dict(addrs), False, lambda c, _n: kv(),
+                                 Config(cluster_id=c, node_id=n, election_rtt=20,
+                                        heartbeat_rtt=2))
+                                for c in range(1, groups + 1)])
+                        _s, leaders = _elect_all(hosts[1], groups, FLEET_ELECT_S)
+                        assert len(leaders) == groups, (
+                            f"teardown {name}: {len(leaders)} of {groups} elected")
+                        nh = hosts[leaders[1]]
+                        nh.sync_propose(nh.get_noop_session(1), b"k=v", timeout_s=30.0)
+                    finally:
+                        for nh in hosts.values():
+                            nh.stop()
+                del hosts, nh
+                left = _allocated(device)
+                rec["after_no_collect"].append(left)
+                if left != before:
+                    sites = {}
+                    for addr, (size, frames) in _live_blocks().items():
+                        if addr not in base:
+                            site = sites.setdefault(frames[0] if frames else "?", [0, 0])
+                            site[0] += 1
+                            site[1] += size
+                    rec.setdefault("left_by_stop", []).append({"cycle": cycle, "sites": sites})
+                gc.collect()
+                rec["after"].append(_allocated(device))
+        finally:
+            vector.mesh_devices = orig
+        if device == "cuda":
+            rec["verdicts"] = {"device_memory_freed_on_stop": all(
+                a == before for a in rec["after_no_collect"] + rec["after"])}
+        else:
+            rec["verdicts"] = {"cycles_completed": len(rec["after"]) == cycles}
+        out[name] = rec
+    out["seconds"] = round(time.perf_counter() - t0, 2)
+    log("teardown: " + json.dumps(out, default=str))
+    bad = [f"{n}.{v}" for n, *_x in shapes for v, ok in out[n]["verdicts"].items() if not ok]
+    assert not bad, f"teardown: verdicts failed {bad}"
+    return out
+
+
 @contextlib.contextmanager
 def pinned_catchup():
     """The super-step (or step) just after each joiner's first reject
@@ -3898,6 +4276,8 @@ def phase_catchup(cuda, K, card, device="cuda", groups=WIDE_GROUPS):
         "card": card}))
     assert not holes["log_holes"], f"phase 13: log holes {holes['log_holes'][:3]}"
     assert not holes["missing_saves"], f"phase 13: saves without a payload {holes['missing_saves'][:3]}"
+    if device == "cuda":
+        out["teardown"] = teardown_cycles(device, card)
     out["seconds"] = round(time.perf_counter() - t_phase, 2)
     return out
 
@@ -4016,6 +4396,7 @@ def main() -> int:
         rebase_res[str(lanes)] = {"ms": r_ms, "bound_ms": r_bound}
         log(f"rebase @ {lanes} lanes: {r_ms:.4f} ms of device time per call (torch ops), "
             f"bound {r_bound:.5f} ms ({kb.rebase_bytes(s_r)} B)")
+    act = phase_activation(cuda, kb, card)
     log(json.dumps({
         "kernel_bench": {
             "groups": bcfg.groups, "steps": BENCH_STEPS,
@@ -4049,9 +4430,6 @@ def main() -> int:
 
     # ---- phase 5: the engine through NodeHost, configs 2, 6, 1, 3, 4, 5, 8 ----
     at("5")
-    act = time_activation(kb, scfg)
-    log(f"activate_lanes @ {scfg.groups} lanes, batch of {act['batch']}: {act['ms']:.4f} ms of "
-        f"device time (torch index_put_ ops), bound {act['bound_ms']:.5f} ms ({act['bytes']} B)")
     engines = {c: phase_engine(cuda, K, c) for c in E2E_CONFIGS}
 
     # ---- phase 6: the fault plane on the card ----
@@ -4116,7 +4494,9 @@ def main() -> int:
     catch_names = [n for n, _ in CATCHUP_SCENARIOS]
     log(f"catchup: {len(catch_names)} scenarios ("
         + ", ".join(f"{n} {catch[n]['seconds']} s" for n in catch_names)
-        + f"), {catch['joins_first_rejects']} joiners' first rejects, "
+        + f"), {catch['joins_first_rejects']} joiners' first rejects, teardown "
+        + json.dumps({n: catch["teardown"][n]["verdicts"] for n, *_x in TEARDOWN_SHAPES})
+        + f" in {catch['teardown']['seconds']} s, "
         f"{catch['log_holes']} log holes, {catch['missing_arena_saves']} saves without a "
         f"payload, phase "
         f"{catch['seconds']} s, whole run {time.perf_counter() - t_run:.1f} s [{card}]")
@@ -4255,12 +4635,27 @@ def main() -> int:
             "n_devices", "mesh_shape", "padded_groups", "lanes_total")}
             if k.startswith("config") else r) for k, r in run.items()}
             for name, run in mesh["runs"].items()}}
+    main_timed = act["timed"]["3072x4096"]
+    kernels["kernels"].append({
+        "name": "activation", "route": "cuda", "source": ring + "activate.cu",
+        "replaces": "dragonboat_tpu/engine/vector.py:192",
+        # config 2's bring-up through NodeHost (the headline path)
+        "launches": engines[2][1]["activate"], "max_abs_err": act["max_abs_err"],
+        "mismatched_fields": len(act["mismatched_fields"]), "cases": act["cases"],
+        "ms": main_timed["ms"], "plain_ms": main_timed["plain_ms"],
+        "bound_ms": main_timed["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shape": "3072 lanes, P=4, W=256, bucket 4096", "timed": act["timed"],
+        "host_ms": act["host_ms"], "plain_host_ms": act["plain_host_ms"],
+        "host_lanes": act["host_lanes"],
+        "engine": per_step("activate"),
+        "bring_up_batches": {f"config{c}": r["activation_batches"]
+                             for c, (r, _) in engines.items()},
+        "ptxas": ptxas["activate_kernel"],
+    })
     kernels["rebase"] = {"source": "dragonboat_tpu_torch/ops/state.py", "route": "torch ops",
-                         "replaces": "dragonboat_tpu/ops/state.py:542", **rebase_res}
-    kernels["activation"] = {"source": "dragonboat_tpu_torch/engine/vector.py", "route": "torch ops",
-                             "replaces": "dragonboat_tpu/engine/vector.py:192", **act,
-                             "bring_up_batches": {f"config{c}": r["activation_batches"]
-                                                  for c, (r, _) in engines.items()}}
+                         "replaces": "dragonboat_tpu/ops/state.py:542", **rebase_res,
+                         "main_path_calls": {f"config{c}": r["rebase_calls"]
+                                             for c, (r, _) in engines.items()}}
     kernels["engine"] = {f"config{c}": {k: r.get(k) for k in E2E_KEYS + E2E_TRAFFIC_KEYS
                                         if k in E2E_KEYS or k in r}
                          for c, (r, _) in engines.items()}
@@ -4287,12 +4682,16 @@ def main() -> int:
         n: {k: v for k, v in catch[n].items()
             if k not in ("launches", "kernel_vs_plain", "superstep_vs_plain")}
         for n in catch_names}
+    kernels["catchup"]["teardown"] = catch["teardown"]
     kernels["catchup"].update(seconds=catch["seconds"],
                               joins_first_rejects=catch["joins_first_rejects"],
                               log_holes=catch["log_holes"],
                               missing_arena_saves=catch["missing_arena_saves"])
-    kernels["activation"]["fleet_bring_up_batches"] = {
+    act_row = next(k for k in kernels["kernels"] if k["name"] == "activation")
+    act_row["fleet_bring_up_batches"] = {
         n: fleet[n]["activation"] for n in fleet_names if "activation" in fleet[n]}
+    act_row["fleet"] = {n: fleet[n]["launches"]["activate"] for n in fleet_names}
+    act_row["catchup"] = {n: catch[n]["launches"]["activate"] for n in catch_names}
     log(f"card: {card_line()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -85,7 +85,17 @@ from ..core.peer import PeerAddress, encode_config_change
 from ..core.raft import _make_metadata_entries, _make_witness_snapshot
 from ..core.rate import ENTRY_OVERHEAD_BYTES
 from ..logger import get_logger
-from ..ops.cuda import _output_layout
+from ..ops.cuda import (
+    ACT_COLUMNS,
+    ACT_ROWS,
+    ACT_SET,
+    ACT_ZERO,
+    _output_layout,
+    activate_cuda,
+    activation_layout,
+    packed_spans,
+    packed_views,
+)
 from ..ops.kernel import make_multi_step_fn, make_sharded_multi_step_fn, step_batch
 from ..ops.state import (
     CTR,
@@ -165,47 +175,25 @@ def _ctx_origin(enc_lo: int) -> int:
     return (enc_lo >> 24) - 1
 
 
-# planes that lane activation resets to zero (False) on every activated
-# lane: timers, lease round, replication progress, votes, transfer, cc
-# and quiesce flags, and the ReadIndex queue (ri_ctx2 is left as is: the
-# queue is empty once ri_count is 0)
-_ACT_ZERO = (
-    "leader", "tick_count", "election_tick", "heartbeat_tick",
-    "lease_until", "hb_round_tick", "hb_ack_bits", "match", "ract",
-    "snap_sent", "vresp", "vgrant", "transfer_to", "transfer_flag",
-    "pending_cc", "quiesced", "idle_ticks", "ri_ctx", "ri_index",
-    "ri_acks", "ri_count",
-)
-# planes set from the per-lane bring-up values ``v`` (one row per lane)
-_ACT_SET = (
-    "self_slot", "member", "voting", "observer", "witness", "term", "vote",
-    "role", "election_timeout", "heartbeat_timeout", "rand_timeout",
-    "check_quorum", "prevote_on", "lease_on", "lease_margin", "first_index",
-    "marker_term", "last_index", "committed", "processed", "applied",
-    "unsaved_from", "log_term", "log_is_cc", "quiesce_on",
-    "quiesce_threshold",
-)
-
-
-#: activate_lanes calls by batch size (the padded bucket): how many batches
-#: a bring-up takes
+#: activate_packed calls (activate_lanes goes through it) by batch size
+#: (the padded bucket): how many batches a bring-up takes
 ACTIVATIONS: Dict[int, int] = {}
 
 
-def activate_lanes(s: RaftTensors, gi: torch.Tensor, v: Dict[str, torch.Tensor]) -> RaftTensors:
-    """Bulk lane activation: write n lanes' bring-up values into the
-    device state IN PLACE, one ``index_put_`` per plane, on the current
-    stream. ``gi`` holds the n lane indexes and ``v`` the per-lane values
-    (tensors on the state's device, one row per lane). The engine pads a
+def activate_lanes_reference(s: RaftTensors, gi: torch.Tensor,
+                             v: Dict[str, torch.Tensor]) -> RaftTensors:
+    """The plain version of lane activation: write n lanes' bring-up values
+    into the state IN PLACE, one ``index_put_`` per plane. ``gi`` holds the
+    n lane rows and ``v`` the per-lane values (tensors on the state's
+    device, one row per lane: ACT_COLUMNS and ACT_ROWS). The engine pads a
     batch to a power-of-4 bucket by repeating its last lane: duplicate
     indexes carry equal values, so the writes are order-free, and no
     padded index ever reaches G. Returns the same state."""
     gi = (gi.to(device=s.term.device, dtype=torch.long),)
     n = gi[0].shape[0]
-    ACTIVATIONS[n] = ACTIVATIONS.get(n, 0) + 1
-    for name in _ACT_SET:
+    for name in ACT_SET:
         getattr(s, name).index_put_(gi, v[name])
-    for name in _ACT_ZERO:
+    for name in ACT_ZERO:
         t = getattr(s, name)
         t.index_put_(gi, torch.zeros((), dtype=t.dtype, device=t.device))
     s.active.index_put_(gi, torch.ones((), dtype=torch.bool, device=s.active.device))
@@ -213,6 +201,44 @@ def activate_lanes(s: RaftTensors, gi: torch.Tensor, v: Dict[str, torch.Tensor])
     s.rstate.index_put_(gi, torch.full((), RSTATE.RETRY, dtype=torch.int32,
                                        device=s.rstate.device))
     return s
+
+
+def activate_lanes(s: RaftTensors, gi: torch.Tensor, v: Dict[str, torch.Tensor]) -> RaftTensors:
+    """Lane activation of n lane rows ``gi`` with their values ``v`` (see
+    activate_lanes_reference), in place: the rows and values copied into
+    one packed buffer on the state's device, then activate_packed (on the
+    card csrc/activate.cu, raising when it does not build or launch)."""
+    n = int(gi.shape[0])
+    layout = activation_layout(n, s.member.shape[1], s.log_term.shape[1])
+    buf = torch.empty((packed_spans(layout)[1],), dtype=torch.uint8, device=s.term.device)
+    for name, view in packed_views(buf, layout).items():
+        view.copy_(gi if name == "rows" else v[name])
+    return activate_packed(s, buf, n)
+
+
+def unpack_activation(packed: torch.Tensor, n: int, P: int, W: int):
+    """(lane rows, name -> per-lane values) of a packed activation buffer
+    of n lane rows (ops/cuda.py:activation_layout), as views of it."""
+    v = packed_views(packed, activation_layout(n, P, W))
+    return v.pop("rows"), v
+
+
+def activate_packed_reference(s: RaftTensors, packed: torch.Tensor, n: int) -> RaftTensors:
+    """The plain version of csrc/activate.cu: the lane rows and values read
+    from the packed buffer through its layout, then written as
+    activate_lanes_reference writes them. Returns the state."""
+    rows, v = unpack_activation(packed, n, s.member.shape[1], s.log_term.shape[1])
+    return activate_lanes_reference(s, rows, v)
+
+
+def activate_packed(s: RaftTensors, packed: torch.Tensor, n: int) -> RaftTensors:
+    """One activation batch from its packed buffer (on the state's device),
+    in place: csrc/activate.cu on the card (raising when it does not build
+    or launch), activate_packed_reference on the CPU."""
+    ACTIVATIONS[n] = ACTIVATIONS.get(n, 0) + 1
+    if s.term.device.type != "cuda":
+        return activate_packed_reference(s, packed, n)
+    return activate_cuda(s, packed, n)
 
 
 # ---- the engine's small device writes, each in place on whole planes or
@@ -356,14 +382,9 @@ class _Planes:
     }
 
     def __init__(self, layout, device, pin: bool = False) -> None:
-        spans = []
-        off = 0
-        for name, shape, dt in layout:
-            n = int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
-            spans.append((name, shape, dt, off, n))
-            off += (n + 15) // 16 * 16
+        spans, size = packed_spans(layout)
         self.bytes = torch.zeros(
-            max(off, 16), dtype=torch.uint8, device=device, pin_memory=pin
+            size, dtype=torch.uint8, device=device, pin_memory=pin
         )
         self.t = {
             name: self.bytes[o : o + n].view(dt).view(shape)
@@ -376,6 +397,40 @@ class _Planes:
                 name: raw[o : o + n].view(self._NP[dt]).reshape(shape)
                 for name, shape, dt, o, n in spans
             }
+
+
+def activation_bucket(n: int, lanes: int) -> int:
+    """The rows an activation batch of n lanes is padded to: the next power
+    of 4, at most the shard's lanes (a few batch shapes, as the JAX
+    package's buckets bound its compile cache)."""
+    bucket = 1
+    while bucket < n:
+        bucket *= 4
+    return min(bucket, lanes)
+
+
+def pack_activation(rows: List[int], vals: List[dict], bucket: int, P: int,
+                    W: int) -> torch.Tensor:
+    """One activation batch in ONE host byte buffer, laid out by
+    ops/cuda.py:activation_layout: the lane rows and each lane's values
+    (dicts of ACT_COLUMNS and ACT_ROWS), padded to ``bucket`` rows by
+    repeating the last lane (duplicate scatter indexes with equal values
+    are order-free). Filled through numpy views of its bytes, so packing
+    reads no tensor on the host."""
+    spans, size = packed_spans(activation_layout(bucket, P, W))
+    raw = np.zeros(size, np.uint8)
+    v = {name: raw[o:o + nb].view(_Planes._NP[dt]).reshape(shape)
+         for name, shape, dt, o, nb in spans}
+    n = len(vals)
+    v["rows"][:n] = rows
+    for key, _dt in ACT_COLUMNS:
+        v[key][:n] = [x[key] for x in vals]
+    for key, _dt in ACT_ROWS:
+        v[key][:n] = np.stack([x[key] for x in vals])
+    if bucket > n:
+        for a in v.values():
+            a[n:] = a[n - 1]
+    return torch.from_numpy(raw)
 
 
 class _SharedClock(LogicalClock):
@@ -4019,38 +4074,11 @@ class VectorEngine:
             quiesce_threshold=quiesce_threshold,
         )
 
-    # per-lane value keys forwarded into activate_lanes
-    _ACT_COLS = (
-        ("self_slot", np.int32),
-        ("term", np.int32),
-        ("vote", np.int32),
-        ("role", np.int32),
-        ("election_timeout", np.int32),
-        ("heartbeat_timeout", np.int32),
-        ("rand_timeout", np.int32),
-        ("check_quorum", bool),
-        ("prevote_on", bool),
-        ("lease_on", bool),
-        ("lease_margin", np.int32),
-        ("first_index", np.int32),
-        ("marker_term", np.int32),
-        ("last_index", np.int32),
-        ("committed", np.int32),
-        ("processed", np.int32),
-        ("applied", np.int32),
-        ("unsaved_from", np.int32),
-        ("next", np.int32),
-        ("quiesce_on", bool),
-        ("quiesce_threshold", np.int32),
-    )
-    _ACT_MATS = (
-        ("member", bool),
-        ("voting", bool),
-        ("observer", bool),
-        ("witness", bool),
-        ("log_term", np.int32),
-        ("log_is_cc", bool),
-    )
+    # the per-lane value columns and rows of an activation batch
+    # (ops/cuda.py:ACT_COLUMNS, ACT_ROWS) with their numpy types: what a
+    # batch's values are built from outside the engine (tests, chip_smoke)
+    _ACT_COLS = tuple((k, bool if dt == torch.bool else np.int32) for k, dt in ACT_COLUMNS)
+    _ACT_MATS = tuple((k, bool if dt == torch.bool else np.int32) for k, dt in ACT_ROWS)
 
     def _h2d(self, a: np.ndarray, sh: _Shard) -> torch.Tensor:
         """A host array on shard sh's device, under its stream context. On
@@ -4064,8 +4092,8 @@ class VectorEngine:
         return t.pin_memory().to(sh.device, non_blocking=True)
 
     def _activate_batch(self, lanes: List[_Lane]) -> None:
-        """Activate many lanes with ONE index_put_ per plane
-        (activate_lanes) — the engine analogue of
+        """Activate many lanes in ONE batch per shard (_activate_rows: one
+        packed copy and one activate_packed) — the engine analogue of
         ops/state.configure_groups_uniform. Batches pad to power-of-4
         buckets, as the JAX package does to bound its compile cache."""
         vals: List[dict] = []
@@ -4097,30 +4125,19 @@ class VectorEngine:
         self._ready.set()
 
     def _activate_rows(self, sh: _Shard, rows: List[int], vals: List[dict]) -> None:
-        """One activate_lanes batch into shard sh's state tree (`rows` are
-        lane rows of that shard)."""
-        n = len(vals)
-        bucket = 1
-        while bucket < n:
-            bucket *= 4
-        bucket = min(bucket, sh.hi - sh.lo)
-        pad = bucket - n
-        # padding repeats the last lane (duplicate scatter indexes with
-        # identical values are order-independent)
-        gi = np.asarray(rows + [rows[-1]] * pad, np.int64)
+        """One activation batch into shard sh's state tree (`rows` are lane
+        rows of that shard): the rows and values packed into ONE host
+        buffer (ops/cuda.py:activation_layout), on the card pinned and
+        copied once to the shard's device on its stream, then one
+        activate_packed."""
+        bucket = activation_bucket(len(vals), sh.hi - sh.lo)
+        packed = pack_activation(rows, vals, bucket, self.kcfg.peers, self.kcfg.log_window)
         with sh.on():
-            v = {}
-            for key, dtype in self._ACT_COLS:
-                a = np.asarray([x[key] for x in vals], dtype)
-                if pad:
-                    a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
-                v[key] = self._h2d(a, sh)
-            for key, dtype in self._ACT_MATS:
-                a = np.stack([x[key] for x in vals]).astype(dtype)
-                if pad:
-                    a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
-                v[key] = self._h2d(a, sh)
-            activate_lanes(sh.state, self._h2d(gi, sh), v)
+            if self._cuda:
+                # one pinned copy of the buffer, one async copy to the card;
+                # the pinned block is not handed out again before it ran
+                packed = packed.pin_memory().to(sh.device, non_blocking=True)
+            activate_packed(sh.state, packed, bucket)
 
     def _logdb_state(self, node) -> State:
         st, _ = node.log_reader.node_state()
@@ -4768,6 +4785,24 @@ class VectorEngine:
         # file" + a C++ abort at interpreter teardown)
         for t in self._threads:
             t.join(timeout=30 if t.name == "vec-step" else 2)
+        if not any(t.is_alive() for t in self._threads if t.name == "vec-step"):
+            self._release_tensors()
+
+    def _release_tensors(self) -> None:
+        """Drop every tensor of the stopped engine: the shards' state trees,
+        residual inboxes and device planes, the host staging and fetch
+        slots (pinned on the card), and the step in flight. The core sits
+        in reference cycles (its threads, lanes and nodes point back at
+        it), so without this its device memory would wait for a full
+        collection of the cycle collector (ROADMAP §3 fault 13). The host
+        mirrors stay: a stopped core still answers lane_stats and the
+        census from them."""
+        for sh in self._shards:
+            sh.state = sh.resid = sh.dev_in = sh.dev_inbox = None
+            sh.dev_out = sh.outs = sh.plans = sh.host_ins = None
+        self._bufsets, self._out_slots, self._pending = [], [], None
+        self._buf = self._ticks = self._host_inbox = self._host_in = None
+        self._np_route = self._np_rdelta = None
 
 
 class VectorEngineHandle:

@@ -29,6 +29,9 @@ launches on PyTorch's current stream and counts the launch in LAUNCHES):
   pointers across cards, `enable_peers`).
 - `shard_route_cuda`: columns per shard, one gather per destination, both
   scatter passes per shard.
+- `activate_cuda`: `csrc/activate.cu`, one batch of lane activation: every
+  plane the engine's bring-up writes, for the lane rows of ONE packed
+  buffer (`activation_layout`), in one launch.
 
 `multi_step_cuda` and `sharded_multi_step_cuda` drive a whole super-step:
 stacked outputs allocated once per call, step t's kernels writing slice t,
@@ -52,7 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .kernel import candidates_per_lane, record_words
-from .state import Inbox, KernelConfig, RaftTensors, RoutePlan, StepOutput, CTR, MSG
+from .state import Inbox, KernelConfig, RaftTensors, RoutePlan, StepOutput, CTR, MSG, RSTATE
 
 PMAX, RMAX = 8, 4
 KMAX = 8
@@ -71,7 +74,7 @@ NVCC_FLAGS = (
 #: nowhere else
 LAUNCHES: Dict[str, int] = {
     "step_batch": 0, "route_columns": 0, "route_index": 0, "route_scatter": 0,
-    "ring_gather": 0,
+    "ring_gather": 0, "activate": 0,
 }
 
 #: a free slot of the scatter's per-lane candidate lists (csrc/route.cu)
@@ -85,7 +88,7 @@ PTXAS: Dict[str, str] = {}
 #: (profile.CompileWatch counts builds through it)
 BUILD_LISTENERS: List = []
 
-_SOURCES = ("step_batch.cu", "route.cu", "ring_gather.cu")
+_SOURCES = ("step_batch.cu", "route.cu", "ring_gather.cu", "activate.cu")
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -134,7 +137,7 @@ def build_kernels() -> Dict[str, str]:
 
 
 _KERNELS = ("step_batch_kernel", "route_columns_kernel", "route_index_kernel",
-            "route_scatter_kernel", "ring_gather_kernel")
+            "route_scatter_kernel", "ring_gather_kernel", "activate_kernel")
 
 
 def kernel_resources() -> Dict[str, Dict[str, int]]:
@@ -235,6 +238,153 @@ class RingGatherParams(ctypes.Structure):
     ]
 
 
+# ------------------------------------------------------- lane activation
+
+#: the planes lane activation resets to zero (False) on every activated
+#: lane: timers, lease round, replication progress, votes, transfer, cc and
+#: quiesce flags, and the ReadIndex queue (ri_ctx2 is left as is: the queue
+#: is empty once ri_count is 0)
+ACT_ZERO = (
+    "leader", "tick_count", "election_tick", "heartbeat_tick",
+    "lease_until", "hb_round_tick", "hb_ack_bits", "match", "ract",
+    "snap_sent", "vresp", "vgrant", "transfer_to", "transfer_flag",
+    "pending_cc", "quiesced", "idle_ticks", "ri_ctx", "ri_index",
+    "ri_acks", "ri_count",
+)
+#: the planes set from the per-lane bring-up values (one row per lane)
+ACT_SET = (
+    "self_slot", "member", "voting", "observer", "witness", "term", "vote",
+    "role", "election_timeout", "heartbeat_timeout", "rand_timeout",
+    "check_quorum", "prevote_on", "lease_on", "lease_margin", "first_index",
+    "marker_term", "last_index", "committed", "processed", "applied",
+    "unsaved_from", "log_term", "log_is_cc", "quiesce_on",
+    "quiesce_threshold",
+)
+_I32, _B8 = torch.int32, torch.bool
+#: the per-lane value columns of an activation batch (`next` fills every
+#: peer slot of the lane's `next` row)
+ACT_COLUMNS = (
+    ("self_slot", _I32), ("term", _I32), ("vote", _I32), ("role", _I32),
+    ("election_timeout", _I32), ("heartbeat_timeout", _I32), ("rand_timeout", _I32),
+    ("check_quorum", _B8), ("prevote_on", _B8), ("lease_on", _B8), ("lease_margin", _I32),
+    ("first_index", _I32), ("marker_term", _I32), ("last_index", _I32), ("committed", _I32),
+    ("processed", _I32), ("applied", _I32), ("unsaved_from", _I32), ("next", _I32),
+    ("quiesce_on", _B8), ("quiesce_threshold", _I32),
+)
+#: the per-lane value rows: [P] for the membership rows, [W] for the log
+ACT_ROWS = (
+    ("member", _B8), ("voting", _B8), ("observer", _B8), ("witness", _B8),
+    ("log_term", _I32), ("log_is_cc", _B8),
+)
+
+
+def packed_spans(layout):
+    """(name, shape, dtype, byte offset, bytes) of each plane of `layout`
+    laid out in one byte buffer, each plane 16-byte aligned, and the
+    buffer's size."""
+    spans, off = [], 0
+    for name, shape, dt in layout:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        n *= torch.empty((), dtype=dt).element_size()
+        spans.append((name, tuple(shape), dt, off, n))
+        off += (n + 15) // 16 * 16
+    return spans, max(off, 16)
+
+
+def activation_layout(n: int, P: int, W: int):
+    """The packed buffer of one activation batch of n lane rows (the
+    padded bucket) at P peers and a W-entry window, as `packed_spans`
+    lays it out: the i32 lane rows `rows`, then every ACT_COLUMNS column
+    (n,), then every ACT_ROWS row (n, P) or (n, W). csrc/activate.cu reads
+    it through the pointers `activate_params` takes from it."""
+    return ([("rows", (n,), _I32)]
+            + [(k, (n,), dt) for k, dt in ACT_COLUMNS]
+            + [(k, (n, W if k.startswith("log_") else P), dt) for k, dt in ACT_ROWS])
+
+
+def packed_views(buf: torch.Tensor, layout):
+    """name -> the view of each plane of `layout` in the byte buffer
+    `buf`."""
+    spans, total = packed_spans(layout)
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.numel() < total:
+        raise ValueError(f"a packed buffer is u8 of at least {total} bytes, got "
+                         f"{buf.dtype} {tuple(buf.shape)}")
+    return {name: buf[o:o + nb].view(dt).view(shape) for name, shape, dt, o, nb in spans}
+
+
+class ActPlane(ctypes.Structure):
+    """Mirror of `struct ActPlane` in csrc/activate.cu."""
+
+    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p),
+                ("first_block", ctypes.c_int64)] + [
+        (n, ctypes.c_int32) for n in ("width", "src_width", "elem", "fill")]
+
+
+#: most planes one activation launch writes (csrc/activate.cu)
+ACT_MAX_PLANES = 64
+#: elements of one plane an activation block writes (csrc/activate.cu)
+ACT_ELEMS = 1024
+
+
+class ActivateParams(ctypes.Structure):
+    """Mirror of `struct ActivateParams` in csrc/activate.cu."""
+
+    _fields_ = [("rows", ctypes.c_void_p), ("planes", ActPlane * ACT_MAX_PLANES),
+                ("blocks", ctypes.c_int64)] + [
+        (n, ctypes.c_int32) for n in ("n", "G", "n_planes")]
+
+
+def activate_params(s: RaftTensors, packed: torch.Tensor, n: int) -> ActivateParams:
+    """Check one activation batch (the state's planes and the packed buffer
+    of n lane rows, on one device) and fill the kernel's struct: per
+    written plane its destination, its source column in the buffer (none
+    for a constant), its widths and its first block."""
+    what = "activate"
+    G, P = s.member.shape
+    W = s.log_term.shape[1]
+    dev = s.term.device
+    if not isinstance(packed, torch.Tensor) or packed.device != dev:
+        raise ValueError(f"{what}: the packed buffer must be a tensor on {dev}")
+    if not packed.is_contiguous():
+        raise ValueError(f"{what}: the packed buffer must be contiguous")
+    v = packed_views(packed, activation_layout(n, P, W))
+    writes = [(name, v[name], 0) for name in ACT_SET]
+    writes += [(name, None, 0) for name in ACT_ZERO]
+    writes += [("active", None, 1), ("next", v["next"], 0),
+               ("rstate", None, RSTATE.RETRY)]
+    p = ActivateParams()
+    p.rows = v["rows"].data_ptr()
+    block = 0
+    for q, (name, src, fill) in enumerate(writes):
+        t = getattr(s, name)
+        width = t[0].numel()
+        _check(what, name, t, (G,) + tuple(t.shape[1:]), t.dtype, dev)
+        a = p.planes[q]
+        a.dst, a.src = t.data_ptr(), (src.data_ptr() if src is not None else None)
+        a.width, a.elem, a.fill = width, t.element_size(), fill
+        a.src_width = 1 if src is None else src[0].numel()
+        if src is not None and src.dtype != t.dtype:
+            raise ValueError(f"{what}: column {name} is {src.dtype}, its plane {t.dtype}")
+        a.first_block = block
+        block += -(-n * width // ACT_ELEMS)
+    if n * max(P, W, s.ri_ctx.shape[1]) >= 2**31:
+        raise ValueError(f"{what}: {n} lane rows of {max(P, W)} elements exceed 2^31")
+    p.blocks, p.n, p.G, p.n_planes = block, n, G, len(writes)
+    return p
+
+
+def activate_cuda(s: RaftTensors, packed: torch.Tensor, n: int) -> RaftTensors:
+    """One batch of lane activation on the card (csrc/activate.cu): n lane
+    rows and their values in the packed buffer (`activation_layout`),
+    written into the state's planes in place, on the current stream.
+    Returns the state."""
+    dev = _on_cuda(s.term, "activate")
+    _Launcher(dev)("activate_launch", activate_params(s, packed, n), "activate")
+    return s
+
+
 # source -> (launch function, its parameter struct, the struct-size query)
 _ENTRIES = {
     "step_batch.cu": (("step_batch_launch", StepParams, "step_batch_params_size"),),
@@ -244,6 +394,7 @@ _ENTRIES = {
         ("route_scatter_launch", RouteScatterParams, "route_scatter_params_size"),
     ),
     "ring_gather.cu": (("ring_gather_launch", RingGatherParams, "ring_gather_params_size"),),
+    "activate.cu": (("activate_launch", ActivateParams, "activate_params_size"),),
 }
 
 
@@ -270,14 +421,15 @@ class _Launcher:
 
     def __init__(self, device, stream: Optional[torch.cuda.Stream] = None,
                  switch: bool = False):
+        # the libraries first: one that does not build or load raises here
+        self.fns = {fn: getattr(_lib(src), fn)
+                    for src, entries in _ENTRIES.items() for fn, _, _ in entries}
         self.device = device
         if stream is None:
             with torch.cuda.device(device):
                 stream = torch.cuda.current_stream()
         self.stream = ctypes.c_void_p(stream.cuda_stream)
         self.switch = switch
-        self.fns = {fn: getattr(_lib(src), fn)
-                    for src, entries in _ENTRIES.items() for fn, _, _ in entries}
 
     def __call__(self, fn: str, params, counter: str) -> None:
         if self.switch:

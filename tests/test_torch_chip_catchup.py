@@ -33,3 +33,12 @@ def test_phase_catchup_scenario_on_cpu(name, monkeypatch):
     assert out["log_holes"] == 0 and out["missing_arena_saves"] == 0
     if name == "join_shared_k8":
         assert out["joins_first_rejects"] == 8
+
+
+def test_teardown_cycles_on_cpu(tmp_path):
+    """Phase 13's teardown check (ROADMAP §3 fault 13) rehearsed at 4 groups,
+    one cycle of each shape: the card's memory is read only there."""
+    out = chip_smoke.teardown_cycles("cpu", "cpu", groups=4, cycles=1, workdir=str(tmp_path))
+    for name, *_x in chip_smoke.TEARDOWN_SHAPES:
+        assert out[name]["verdicts"] == {"cycles_completed": True}
+        assert out[name]["after"] == [None]

@@ -4,7 +4,9 @@ Every test of the reference file runs here with its names bound to the port
 (`torch_twin.port_copy`): the rate limiter's local and follower limits and
 their ageing out, the in-memory log's byte accounting, the scalar core's
 follower reports, and a NodeHost refusing a burst with ErrSystemBusy and
-accepting work again on either engine (slow).
+accepting work again on either engine (slow). When that body fails, the
+harness prints the in-memory log size the burst reached beside the limit
+(`torch_twin.in_mem_log_watch`).
 
 The test below drives both packages' rate limiters with one seeded
 sequence of operations and holds every decision equal."""
@@ -13,10 +15,13 @@ import random
 
 import pytest
 
-from torch_twin import one_thread, port_copy, reference_tests  # noqa: F401
+from torch_twin import in_mem_log_watch, one_thread, port_copy, reference_tests, reporting  # noqa: F401
 
 R = port_copy("test_rate_limit")
 globals().update(reference_tests(R))
+# ROADMAP §3 fault 16: a failed burst prints the in-memory log size it
+# reached beside max_in_mem_log_size
+test_nodehost_rate_limit_e2e = reporting(R.test_nodehost_rate_limit_e2e, in_mem_log_watch)
 
 
 def decisions(pkg, seed, n=400):

@@ -28,7 +28,9 @@ functions return, `instances(mod, names)` the objects its classes make,
 `cluster_counters(mod)` each LoopbackCluster step's counter planes and
 `calls(cls, methods)` what a class's methods return, which lets a twin
 run the same seeded test body through both packages and hold the traces
-equal.
+equal. `in_mem_log_watch()` records the largest in-memory log size a
+replica of the port reached beside its `max_in_mem_log_size`, and
+`reporting(test, watch)` prints that record when a test body fails.
 """
 from __future__ import annotations
 
@@ -247,6 +249,83 @@ def calls(cls, methods, probe=None):
     finally:
         for n, fn in saved.items():
             setattr(cls, n, fn)
+
+
+@contextlib.contextmanager
+def in_mem_log_watch(pkg: str = "dragonboat_tpu_torch"):
+    """Record, during the block, the in-memory log sizes the port's replicas
+    reached and the limit they were held to (Config.max_in_mem_log_size):
+    on the vector engine the arena's unapplied bytes, at every placement
+    (`peak_bytes`) and where a proposal checks the limit
+    (`peak_bytes_at_check`, `checks`, `limited_checks`); on the scalar core
+    its RateLimiter's bytes (`peak_bytes`, `limit`); and on either, the
+    proposals the full incoming queue refused (`queue_full`), the other
+    source of ErrSystemBusy. Yields the record."""
+    V = importlib.import_module(pkg + ".engine.vector")
+    RL = importlib.import_module(pkg + ".core.rate").RateLimiter
+    Q = importlib.import_module(pkg + ".engine.queue").EntryQueue
+    got = {"limit": 0, "peak_bytes": 0, "peak_bytes_at_check": 0, "checks": 0,
+           "limited_checks": 0, "queue_full": 0}
+    prop, setitem, add = V.VectorNode._rate_limited, V._Arena.__setitem__, Q.add
+    saved = {n: vars(RL)[n] for n in ("increase", "set")}
+
+    def checked(node):
+        limited = prop.fget(node)
+        lane = node._vec_lane
+        if node.config.max_in_mem_log_size and lane is not None:
+            got["limit"] = node.config.max_in_mem_log_size
+            got["peak_bytes_at_check"] = max(got["peak_bytes_at_check"],
+                                             lane.arena.unapplied_bytes)
+            got["checks"] += 1
+            got["limited_checks"] += bool(limited)
+        return limited
+
+    def queued(q, e):
+        ok = add(q, e)
+        got["queue_full"] += not ok
+        return ok
+
+    def placed(arena, key, entry):
+        setitem(arena, key, entry)
+        got["peak_bytes"] = max(got["peak_bytes"], arena.unapplied_bytes)
+
+    def counted(fn):
+        @functools.wraps(fn)
+        def call(rl, n):
+            fn(rl, n)
+            if rl.max_bytes:
+                got["limit"] = rl.max_bytes
+                got["peak_bytes"] = max(got["peak_bytes"], rl.get())
+        return call
+
+    V.VectorNode._rate_limited = property(checked, prop.fset)
+    V._Arena.__setitem__ = placed
+    Q.add = queued
+    for n, fn in saved.items():
+        setattr(RL, n, counted(fn))
+    try:
+        yield got
+    finally:
+        V.VectorNode._rate_limited = prop
+        V._Arena.__setitem__ = setitem
+        Q.add = add
+        for n, fn in saved.items():
+            setattr(RL, n, fn)
+
+
+def reporting(test, watch):
+    """`test` (a reference body exported by a twin) run under the context
+    manager `watch()`; when the body fails, the watch's record is printed
+    beside the failure. The name, signature and marks stay the test's."""
+    @functools.wraps(test)
+    def run(*args, **kw):
+        with watch() as got:
+            try:
+                return test(*args, **kw)
+            except BaseException:
+                print(f"{test.__name__}: {got}")
+                raise
+    return run
 
 
 @pytest.fixture(autouse=True)
