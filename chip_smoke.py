@@ -83,7 +83,7 @@ observability host under its three engine tests; a causal trace chain
 across 3 hosts under a seeded partition schedule, rendered by
 tools.timeline; 1,024 lanes electing and committing, and 256 quiesced
 lanes, over whose idle second no step launches; chaos at vector scale
-(drops, partitions, NodeHost kills and restarts) at 1,024 x 3 lanes,
+(drops, partitions, NodeHost kills and restarts) at 512 x 3 lanes,
 every group converged, linearizable and obeying Log Matching. It also
 brings 1,024 groups x 3 replicas up on one core and runs the
 observability census and history bodies there, and holds the step
@@ -93,9 +93,13 @@ engine's follower catch-up on the card: 32 groups of 1,024 x 3 on one
 shared K=8 core each add a replica on a fourth host that joins as an
 empty member and is caught up from its leader's host log (ROADMAP §3
 fault 1), and the retry storm of fault 6; a member caught up below a
-rebased window (fault 11) and a snapshot install whose recovery waits
-while the step appends, on both engines (fault 9), with no log hole
-and no save without its payload; then the reference bodies of
+rebased window (fault 11); the window rebase at config 2's width
+(rebase_wide: 1,024 x 3 lanes on a K=1 core and on a shared K=8 core,
+the rebase threshold lowered to 512, 32 groups each committing 897
+proposals, every rebase held against its plain versions, at K=8 with
+parked rows in the residual inbox); and a snapshot install whose
+recovery waits while the step appends, on both engines (fault 9), with
+no log hole and no save without its payload; then the reference bodies of
 the last eleven test files that drive the vector engine (restarts, 50
 lane restarts with no growth of the card's allocated memory, batched
 proposals, snapshot requests and external files, compression, the rate
@@ -114,7 +118,9 @@ bit for bit on every plane, at config 2's engine shape (3,072 lanes) at
 three buckets and at 50,000 lanes, and times it, the plain version and
 the engine's host side of one batch; phase 12 holds the first four
 activation batches of its bulk start of 1,024 x 3 against the plain
-version.
+version. The window rebase runs as one kernel (csrc/rebase.cu) a shard:
+phase 3 holds it against its plain versions at 1,024, 3,072 and 50,000
+lanes and with config 6's residual inbox, and times both.
 After
 each K=1 engine run of phases 5-9 the step kernel is held against its
 plain version on states that run stepped, at its own lanes, window and
@@ -1187,11 +1193,25 @@ def phase_activation(cuda, kb, card, device="cuda"):
                 work = clone_state(s0)
                 ms = kb.device_ms(lambda: cuda.activate_cuda(work, packed, bucket), lambda: None,
                                   20, ["activate_kernel"])["activate_kernel"]
+                # with a cold L2, as a bring-up finds the state planes:
+                # a buffer of 4x the card's L2 written before each launch
+                l2 = torch.cuda.get_device_properties(0).L2_cache_size
+                flush = torch.empty((4 * l2,), dtype=torch.uint8, device=device)
+                cold_ms = kb.device_ms(lambda: cuda.activate_cuda(work, packed, bucket),
+                                       flush.zero_, 20, ["activate_kernel"])["activate_kernel"]
+                del flush
+                # the same values at consecutive lane rows, as a bring-up's
+                start = int(np.random.default_rng(ACT_SEED + lanes).integers(0, lanes - n + 1))
+                seq = vector.pack_activation(list(range(start, start + n)), vals, bucket, P,
+                                             W).to(device)
+                seq_ms = kb.device_ms(lambda: cuda.activate_cuda(work, seq, bucket),
+                                      lambda: None, 20, ["activate_kernel"])["activate_kernel"]
                 plain_ms = kb.device_ms(lambda: vector.activate_lanes_reference(work, gi, v),
                                         lambda: None, 20)["total"]
                 nbytes = act_bytes(s0, rows, bucket)
                 timed[f"{lanes}x{bucket}"] = {
-                    "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                    "ms": ms, "cold_ms": cold_ms, "consecutive_rows_ms": seq_ms,
+                    "plain_ms": plain_ms, "bytes": nbytes,
                     "bound_ms": nbytes / kb.HBM_BYTES_PER_S * 1e3}
     # the engine's host side: one batch of ACT_HOST_LANES lanes, pack +
     # copy + launch against the plain path's per-column staging, in turns
@@ -1218,13 +1238,99 @@ def phase_activation(cuda, kb, card, device="cuda"):
          "seconds": round(time.perf_counter() - t0, 2), "card": card}
     log("activation: " + json.dumps({**r, "by_case": cases}))
     for key, x in timed.items():
-        log(f"activate @ {key} (lanes x bucket): kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} "
-            f"ms of device time, bound {x['bound_ms']:.5f} ms ({x['bytes']} B) [{card}]")
+        log(f"activate @ {key} (lanes x bucket): kernel {x['ms']:.4f} ms (L2 cold "
+            f"{x['cold_ms']:.4f} ms; consecutive rows {x['consecutive_rows_ms']:.4f} ms), plain "
+            f"{x['plain_ms']:.4f} ms of device time, bound {x['bound_ms']:.5f} ms "
+            f"({x['bytes']} B) [{card}]")
     log(f"activate host side @ {ACT_HOST_LANES} lanes: pack + copy + launch {r['host_ms']:.3f} "
         f"ms, plain per-column copies + index_put_ {r['plain_host_ms']:.3f} ms (medians of "
         f"{len(host['new'])}) [{card}]")
     if bad:
         raise AssertionError(f"activation kernel disagrees with the plain version on {sorted(bad)}")
+    return r
+
+
+# the window rebase (csrc/rebase.cu) against its plain versions: (lanes, P,
+# W, residual inbox depth or 0): phase 1's 1,024 lanes, config 2's 3,072,
+# the kernel regime's 50,000 (P=8, W=512) and config 6's 3,072 lanes with
+# its residual inbox (K=8 super-steps, inbox depth 4)
+REBASE_CASES = ((1024, 4, 256, 0), (3072, 4, 256, 0), (50_000, 8, 512, 0), (3072, 4, 256, 4))
+REBASE_SEED = 20261018
+
+
+def _rebase_inputs(lanes, P, W, depth, rng, device):
+    """A seeded state (and residual inbox of every message type) of the
+    case's shapes on `device`, and a delta of 0, W or 2W a lane."""
+    from dragonboat_tpu_torch.ops.state import KernelConfig, make_empty_inbox
+
+    cfg = KernelConfig(groups=lanes, peers=P, log_window=W, inbox_depth=max(depth, 1),
+                       max_entries_per_msg=64, readindex_depth=4)
+    s = _act_state(cfg, rng, device)
+    resid = None
+    if depth:
+        ib = make_empty_inbox(cfg, device="cpu")
+        for t in ib:
+            if t.dtype == torch.int32:
+                t.copy_(torch.from_numpy(rng.integers(-5, 3 * W, tuple(t.shape)).astype(np.int32)))
+        ib.mtype.copy_(torch.from_numpy(rng.integers(-1, 28, tuple(ib.mtype.shape)).astype(np.int32)))
+        resid = type(ib)(*(t.to(device) for t in ib))
+    delta = torch.from_numpy((rng.integers(0, 3, lanes) * W).astype(np.int32)).to(device)
+    return s, resid, delta
+
+
+def phase_rebase(cuda, kb, card, device="cuda"):
+    """The window rebase on the card: csrc/rebase.cu (through the engine's
+    call, engine.vector.rebase_lanes) against ops.state.rebase and
+    engine.vector.rebase_resid on seeded states of REBASE_CASES, every
+    plane bit for bit; then the kernel's and the plain versions' device
+    time per call (profiler) beside the byte bound. On the CPU (a
+    rehearsal) the plain versions run in place of the kernel and nothing
+    is timed."""
+    from dragonboat_tpu_torch.engine import vector
+    from dragonboat_tpu_torch.ops.kernel import clone_state
+    from dragonboat_tpu_torch.ops.state import rebase
+
+    on_card = device == "cuda"
+    rng = np.random.default_rng(REBASE_SEED)
+    bad, err, timed = [], 0, {}
+    for lanes, P, W, depth in REBASE_CASES:
+        key = f"{lanes}" + (f"_resid_k{depth}" if depth else "")
+        s, resid, delta = _rebase_inputs(lanes, P, W, depth, rng, device)
+        want = rebase(clone_state(s), delta)
+        want_r = clone_state(resid) if depth else None
+        if depth:
+            vector.rebase_resid(want_r, delta)
+        got_r = clone_state(resid) if depth else None
+        got = vector.rebase_lanes(clone_state(s), delta, got_r)
+        b, e = act_mismatches(want, got)
+        err = max(err, e)
+        if depth:
+            br, er = act_mismatches(want_r, got_r)
+            b, err = b + ["resid." + f for f in br], max(err, er)
+        bad += [f"{key}.{f}" for f in b]
+        if not on_card:
+            continue
+        work, work_r = clone_state(s), clone_state(resid) if depth else None
+        ms = kb.device_ms(lambda: cuda.rebase_cuda(work, delta, work_r), lambda: None, 20,
+                          ["rebase_kernel"])["rebase_kernel"]
+
+        def plain():
+            rebase(work, delta)
+            if depth:
+                vector.rebase_resid(work_r, delta)
+
+        plain_ms = kb.device_ms(plain, lambda: None, 20)["total"]
+        nbytes = kb.rebase_bytes(s) + (kb.rebase_resid_bytes(resid) if depth else 0)
+        timed[key] = {"lanes": lanes, "P": P, "W": W, "resid_depth": depth, "ms": ms,
+                      "plain_ms": plain_ms, "bytes": nbytes,
+                      "bound_ms": nbytes / kb.HBM_BYTES_PER_S * 1e3}
+        log(f"rebase @ {key} lanes (P={P} W={W}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"of device time, bound {timed[key]['bound_ms']:.5f} ms ({nbytes} B) [{card}]")
+    r = {"cases": len(REBASE_CASES), "mismatched_fields": bad, "max_abs_err": err,
+         "timed": timed}
+    log("rebase: " + json.dumps(r))
+    if bad:
+        raise AssertionError(f"rebase kernel disagrees with the plain versions on {bad}")
     return r
 
 
@@ -1265,7 +1371,7 @@ def phase_engine(cuda, K, config, groups=None, device="cuda", duration=None):
             return f(*a, **kw)
         return call
 
-    with StepRecorder(K) as rec, _patched([(vector, "rebase", counted)]):
+    with StepRecorder(K) as rec, _patched([(vector, "rebase_lanes", counted)]):
         r = e2e.run_ladder_config(config, groups=groups, duration=duration, device=device)
     launches = dict(cuda.LAUNCHES)
     r["rebase_calls"] = len(rebases)
@@ -2688,9 +2794,28 @@ def gather_at_scale(K, kb, cfg, devices, timed):
            "ms": timed["device_ms_by_kernel"][key] / per_step,
            "launches_per_superstep": per_step,
            "bound_ms": kb.ring_gather_dest_bytes(n, words) / kb.HBM_BYTES_PER_S * 1e3}
+    # the library call that computes one destination's stack: torch.stack
+    # of the n records (timed here only; the port never calls it). The
+    # profiler's device times held nothing for it on the card, so CUDA
+    # events around 20 calls time it (each call moves 234 MB at 50,000
+    # lanes: the gap between launches is noise beside it)
+    g = torch.Generator(device=devices[0]).manual_seed(SS_SEED)
+    recs = [torch.randint(-2**31, 2**31 - 1, (words,), dtype=torch.int32, device=devices[0],
+                          generator=g) for _ in range(n)]
+    stacked = torch.stack(recs)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(20):
+        torch.stack(recs, out=stacked)
+    t1.record()
+    torch.cuda.synchronize()
+    out["library_ms"] = t0.elapsed_time(t1) / 20
+    del recs, stacked
     log(f"ring_gather in the sharded super-step @ {cfg.groups} lanes ({n} x {words}-word "
         f"records): {out['ms']:.4f} ms per launch ({per_step:.0f} launches a super-step), "
-        f"bound {out['bound_ms']:.5f} ms")
+        f"bound {out['bound_ms']:.5f} ms, torch.stack of the {n} records "
+        f"{out['library_ms']:.4f} ms")
     return out
 
 
@@ -3753,6 +3878,11 @@ def scen_quiesce(workdir, device):
     return out
 
 
+# phase 12's chaos at vector scale runs at 512 x 3 lanes (1,024 x 3 until
+# phase 13's rebase_wide took its seconds: the script's time limit)
+CHAOS_SCALE_GROUPS = 512
+
+
 def scen_chaos_scale(workdir, device, groups=None):
     """tests/test_chaos_scale.py's test_chaos_at_vector_scale at `groups`
     groups x 3 replicas on one shared core (its GROUPS set on the copy),
@@ -3783,7 +3913,7 @@ FLEET_SCENARIOS = (
     ("forensics", lambda d, dev, g: scen_forensics(d, dev)),
     ("scale", lambda d, dev, g: scen_scale(d, dev)),
     ("quiesce", lambda d, dev, g: scen_quiesce(d, dev)),
-    ("chaos_scale", lambda d, dev, g: scen_chaos_scale(d, dev, g)),
+    ("chaos_scale", lambda d, dev, g: scen_chaos_scale(d, dev, min(g, CHAOS_SCALE_GROUPS))),
 )
 
 
@@ -4034,6 +4164,184 @@ def scen_rebased_overflow(workdir, device):
     return r
 
 
+# the window rebase at config 2's width: WIDE_GROUPS x 3 lanes on a K=1 core
+# and on a shared K=8 core, the rebase threshold lowered to 2W, and
+# REBASE_WIDE_HOT groups each driven past 3W committed entries (16-byte
+# proposals, in two waves that the engine feeds in as the window frees),
+# so their lanes rebase twice (near 512 and 768 entries, both mid-wave:
+# at K=8 a hot leader then has entries to replicate through the last
+# inner step); the other groups are elected and idle
+REBASE_WIDE_THRESHOLD = 512
+REBASE_WIDE_HOT = 32
+REBASE_WIDE_WAVES = (416, 416)
+REBASE_WIDE_ENTRIES = sum(REBASE_WIDE_WAVES)
+REBASE_WIDE_CAP = 16  # rebases of one core held against the plain versions
+# (core, steps_per_sync, inbox depth, entries a message): config 2's engine
+# shape at K=1; config 6's lanes, P, W and K at K=8 with inbox 8 and 16
+# entries a message, so that a hot leader takes in 128 entries a
+# super-step and replicates them 16 an inner step through the last one,
+# which parks rows in the residual inbox (at config 6's inbox 4 and 64
+# entries a message its 256 go out in the first four inner steps and no
+# rebase finds parked rows)
+REBASE_WIDE_CORES = (("k1", 1, 4, 64), ("k8", 8, 8, 16))
+
+
+@contextlib.contextmanager
+def _held_rebases(kept, counts, core):
+    """During the block, engine.vector.rebase_lanes keeps, on the shard's
+    stream, copies of the state, the residual inbox and the delta before
+    each of the first REBASE_WIDE_CAP calls of core["name"], and of the
+    state and residual inbox after it; every call is counted, with and
+    without a residual inbox."""
+    from dragonboat_tpu_torch.engine import vector
+    from dragonboat_tpu_torch.ops.kernel import clone_state
+
+    def held(f):
+        def call(s, delta, resid=None):
+            name = core["name"]
+            c = counts.setdefault(name, {"calls": 0, "with_resid": 0})
+            c["calls"] += 1
+            c["with_resid"] += resid is not None
+            hold = sum(k[0] == name for k in kept) < REBASE_WIDE_CAP
+            copy = lambda t: None if t is None else clone_state(t)
+            if hold:
+                before = (clone_state(s), copy(resid), delta.clone())
+            out = f(s, delta, resid)
+            if hold:
+                kept.append((name, *before, clone_state(out), copy(resid)))
+            return out
+        return call
+
+    with _patched([(vector, "rebase_lanes", held)]):
+        yield
+
+
+def _rebase_wide_core(workdir, device, groups, name, k, depth, entries_per_msg):
+    """One core of scen_rebase_wide: 3 hosts, every group elected, the hot
+    groups' load in REBASE_WIDE_WAVES, then one more proposal a hot group;
+    the seconds of each part, the proposals that did not complete and the
+    hot groups whose replicas agree."""
+    from dragonboat_tpu_torch.config import EngineConfig, NodeHostConfig
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.transport.loopback import _Registry, loopback_factory
+
+    kv, reg = _kv_sm(), _Registry()
+    addrs = {n: f"rw{name}{n}:1" for n in (1, 2, 3)}
+    hot = range(1, min(REBASE_WIDE_HOT, groups) + 1)
+    hosts, r = {}, {"lanes": 3 * groups, "inbox_depth": depth, "entries_per_msg": entries_per_msg}
+    try:
+        for n in (1, 2, 3):
+            hosts[n] = NodeHost(NodeHostConfig(
+                deployment_id=13, rtt_millisecond=SCEN_RTT_MS, nodehost_dir=f"{workdir}/{name}{n}",
+                raft_address=addrs[n], raft_rpc_factory=lambda a: loopback_factory(a, reg),
+                engine=EngineConfig(kind="vector", max_groups=3 * groups, max_peers=4,
+                                    log_window=256, inbox_depth=depth,
+                                    max_entries_per_msg=entries_per_msg, steps_per_sync=k,
+                                    share_scope=f"chip-rw{name}-{id(reg)}", device=device)))
+        t0 = time.monotonic()
+        for n, nh in hosts.items():
+            nh.start_clusters([(dict(addrs), False, lambda c, _n: kv(), _scen_cfg(n, c))
+                               for c in range(1, groups + 1)])
+        elect_s, leaders = _elect_all(hosts[1], groups, FLEET_ELECT_S)
+        r.update(elect_all_s=round(time.monotonic() - t0, 3), elected=len(leaders))
+        t1, missed = time.monotonic(), 0
+
+        def wave(keys):
+            pending = []
+            for c in hot:
+                lead = _leaders(hosts[1]).get(c) or leaders.get(c, 1)
+                nh = hosts[lead]
+                pending.append(nh.propose_batch_async(
+                    nh.get_noop_session(c), [f"{x}={c}".encode() for x in keys], 60.0))
+            done = 0
+            for h in pending:
+                h.wait(65.0)
+                done += h.completed
+            return len(pending) * len(keys) - done
+
+        j = 0
+        for n in REBASE_WIDE_WAVES:
+            missed += wave([f"k{x}" for x in range(j, j + n)])
+            j += n
+        r["load_s"] = round(time.monotonic() - t1, 3)
+        r["missed_proposals"] = missed
+        r["last_missed"] = wave(["last"])
+        deadline, agree = time.monotonic() + 30.0, 0
+        while True:
+            agree = sum(len({(nh.get_applied_index(c), nh.get_sm_hash(c))
+                             for nh in hosts.values()}) == 1 for c in hot)
+            if agree == len(hot) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        r["hot_groups_converged"] = agree
+        r["hot_applied_min"] = min(hosts[1].get_applied_index(c) for c in hot)
+        r["seconds"] = round(time.monotonic() - t0, 3)
+        return r
+    finally:
+        for nh in hosts.values():
+            nh.stop()
+
+
+def scen_rebase_wide(workdir, device, groups):
+    """The engine's window rebase (csrc/rebase.cu, through
+    VectorEngine._do_rebase and engine.vector.rebase_lanes) at config 2's
+    width: `groups` x 3 lanes on a K=1 core of config 2's engine shape and
+    on a shared K=8 core (REBASE_WIDE_CORES), one after the other, the rebase
+    threshold lowered to REBASE_WIDE_THRESHOLD, REBASE_WIDE_HOT groups each
+    committing REBASE_WIDE_ENTRIES 16-byte proposals and one more. Each
+    rebase keeps the state (and at K=8 the residual inbox) before it; after
+    the cores stop, the plain versions run on those copies and must equal
+    what the kernel left, on every plane. Verdicts: a rebase at K=1 and one
+    with parked residual rows at K=8 (on the card, each call one launch of
+    the kernel), 0 mismatched fields, every hot group committing after its
+    last rebase and its replicas converged; phase 13's watches add no log
+    hole and no save without its payload."""
+    from dragonboat_tpu_torch.engine import vector
+    from dragonboat_tpu_torch.ops import cuda
+    from dragonboat_tpu_torch.ops.state import rebase
+
+    kept, counts, core = [], {}, {"name": None}
+    out = {"groups": groups, "lanes": 3 * groups, "hot": min(REBASE_WIDE_HOT, groups),
+           "entries_per_hot_group": REBASE_WIDE_ENTRIES + 1}
+    before = cuda.LAUNCHES["rebase"]
+    with _rebase_at(REBASE_WIDE_THRESHOLD), _held_rebases(kept, counts, core):
+        for name, *shape in REBASE_WIDE_CORES:
+            core["name"] = name
+            out[name] = _rebase_wide_core(workdir, device, groups, name, *shape)
+            out[name].update(counts.get(name, {"calls": 0, "with_resid": 0}))
+    out["rebase_launches"] = cuda.LAUNCHES["rebase"] - before
+    bad, err = set(), 0
+    for name, s, resid, delta, after, after_r in kept:
+        want = rebase(s, delta)
+        b, e = act_mismatches(want, after)
+        if resid is not None:
+            vector.rebase_resid(resid, delta)
+            br, er = act_mismatches(resid, after_r)
+            b, e = b + ["resid." + f for f in br], max(e, er)
+        bad |= {f"{name}.{f}" for f in b}
+        err = max(err, e)
+    out["held"] = {n: sum(x[0] == n for x in kept) for n, *_x in REBASE_WIDE_CORES}
+    out["held_with_resid"] = sum(x[2] is not None for x in kept)
+    out["mismatched_fields"], out["max_abs_err"] = sorted(bad), err
+    on_card = device == "cuda"
+    k1, k8 = out["k1"], out["k8"]
+    calls = k1["calls"] + k8["calls"]
+    out["verdicts"] = {
+        "every_group_elected": k1["elected"] == groups and k8["elected"] == groups,
+        "k1_rebased": k1["calls"] >= 1,
+        "k8_rebased_with_parked_rows": k8["with_resid"] >= 1,
+        # on the card every call is one launch of the kernel
+        "one_launch_a_call": out["rebase_launches"] == (calls if on_card else 0),
+        "rebases_equal_plain": not bad and len(kept) >= 2,
+        "hot_groups_committed_after_the_last_rebase": all(
+            out[n]["missed_proposals"] == 0 and out[n]["last_missed"] == 0
+            and out[n]["hot_applied_min"] > REBASE_WIDE_ENTRIES for n in ("k1", "k8")),
+        "replicas_converged": all(out[n]["hot_groups_converged"] == out["hot"]
+                                  for n in ("k1", "k8")),
+    }
+    return out
+
+
 def scen_install_interleaving(workdir, device, kind):
     """ROADMAP §3 fault 9 (tests/torch_log_hole.py:install_interleaving)
     on `kind`'s engine: a follower restarted behind a compacted log gets a
@@ -4058,6 +4366,7 @@ CATCHUP_SCENARIOS = (
     ("retry_storm", lambda d, dev, g: scen_retry_storm(d, dev)),
     ("rebased_window", lambda d, dev, g: scen_rebased(d, dev)),
     ("rebased_overflow", lambda d, dev, g: scen_rebased_overflow(d, dev)),
+    ("rebase_wide", lambda d, dev, g: scen_rebase_wide(d, dev, g)),
     ("install_scalar", lambda d, dev, g: scen_install_interleaving(d, dev, "scalar")),
     ("install_vector", lambda d, dev, g: scen_install_interleaving(d, dev, "vector")),
 ) + tuple(
@@ -4384,18 +4693,7 @@ def main() -> int:
     log(f"step_batch @ {p5_cfg.groups} lanes (P=5 W=256 K=4 E=64): kernel {p5_ms:.4f} ms, "
         f"wrapper host part {p5_host_ms:.4f} ms, plain {p5_plain_ms:.2f} ms, bound "
         f"{p5_bound_ms:.5f} ms ({p5_bytes} B)")
-    # ops.state.rebase (torch ops: the engine's window rebase) at 1024 and
-    # 50,000 lanes, its kernels' device time per call beside its byte bound
-    from dragonboat_tpu_torch.ops.state import rebase
-
-    rebase_res = {}
-    for lanes, s_r in ((cfg.groups, st), (bcfg.groups, big[1])):
-        delta = torch.full((lanes,), 256, dtype=torch.int32, device=s_r.term.device)
-        r_ms = kb.device_ms(lambda: rebase(s_r, delta), lambda: None, 20)["total"]
-        r_bound = kb.rebase_bytes(s_r) / kb.HBM_BYTES_PER_S * 1e3
-        rebase_res[str(lanes)] = {"ms": r_ms, "bound_ms": r_bound}
-        log(f"rebase @ {lanes} lanes: {r_ms:.4f} ms of device time per call (torch ops), "
-            f"bound {r_bound:.5f} ms ({kb.rebase_bytes(s_r)} B)")
+    rb = phase_rebase(cuda, kb, card)
     act = phase_activation(cuda, kb, card)
     log(json.dumps({
         "kernel_bench": {
@@ -4652,10 +4950,28 @@ def main() -> int:
                              for c, (r, _) in engines.items()},
         "ptxas": ptxas["activate_kernel"],
     })
-    kernels["rebase"] = {"source": "dragonboat_tpu_torch/ops/state.py", "route": "torch ops",
-                         "replaces": "dragonboat_tpu/ops/state.py:542", **rebase_res,
-                         "main_path_calls": {f"config{c}": r["rebase_calls"]
-                                             for c, (r, _) in engines.items()}}
+    rw = catch["rebase_wide"]
+    main_rb = rb["timed"]["3072"]
+    kernels["kernels"].append({
+        "name": "rebase", "route": "cuda", "source": ring + "rebase.cu",
+        "replaces": "dragonboat_tpu/ops/state.py:542",
+        "also_replaces": "dragonboat_tpu/engine/vector.py:3383",
+        # phase 13's rebase_wide (the path's run, its counts zeroed just
+        # before it; phase 5 reaches no rebase: no lane nears 2^30)
+        "launches": rw["launches"]["rebase"],
+        "max_abs_err": max(rb["max_abs_err"], rw["max_abs_err"]),
+        "mismatched_fields": len(rb["mismatched_fields"]) + len(rw["mismatched_fields"]),
+        "cases": rb["cases"] + sum(rw["held"].values()),
+        "ms": main_rb["ms"], "plain_ms": main_rb["plain_ms"], "bound_ms": main_rb["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": "3072 lanes, P=4, W=256",
+        "timed": rb["timed"],
+        "rebase_wide": {n: {k: rw[n][k] for k in ("calls", "with_resid")}
+                        for n in ("k1", "k8")},
+        "engine": per_step("rebase"),
+        "engine_calls": {f"config{c}": r["rebase_calls"] for c, (r, _) in engines.items()},
+        "catchup": {n: catch[n]["launches"]["rebase"] for n in catch_names},
+        "ptxas": ptxas["rebase_kernel"],
+    })
     kernels["engine"] = {f"config{c}": {k: r.get(k) for k in E2E_KEYS + E2E_TRAFFIC_KEYS
                                         if k in E2E_KEYS or k in r}
                          for c, (r, _) in engines.items()}

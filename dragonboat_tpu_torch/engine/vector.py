@@ -92,6 +92,7 @@ from ..ops.cuda import (
     ACT_ZERO,
     _output_layout,
     activate_cuda,
+    rebase_cuda,
     activation_layout,
     packed_spans,
     packed_views,
@@ -251,6 +252,30 @@ def advance_compaction(s: RaftTensors, mask, first, term) -> None:
     the lanes in ``mask`` (bool[G]; ``first``/``term`` i32[G])."""
     s.first_index.copy_(torch.where(mask, first, s.first_index))
     s.marker_term.copy_(torch.where(mask, term, s.marker_term))
+
+
+#: rebase_lanes calls: every call ("calls") and those that also shifted a
+#: residual inbox ("with_resid")
+REBASES: Dict[str, int] = {"calls": 0, "with_resid": 0}
+
+
+def rebase_lanes(s: RaftTensors, delta: torch.Tensor,
+                 resid: Optional[Inbox] = None) -> RaftTensors:
+    """The window rebase of one shard: the state's index planes shifted by
+    each lane's delta (i32[G] on the state's device) and, when ``resid``
+    is given, the residual inbox's parked messages (rebase_resid). On the
+    card csrc/rebase.cu does both in place in one launch (raising when it
+    does not build or launch); on the CPU ops/state.rebase (a new tree) and
+    rebase_resid. Returns the state to keep."""
+    REBASES["calls"] += 1
+    if resid is not None:
+        REBASES["with_resid"] += 1
+    if s.term.device.type == "cuda":
+        return rebase_cuda(s, delta, resid)
+    s = rebase(s, delta)
+    if resid is not None:
+        rebase_resid(resid, delta)
+    return s
 
 
 def rebase_resid(r: Inbox, delta) -> None:
@@ -3817,16 +3842,13 @@ class VectorEngine:
                 if not d.any():
                     continue
                 with ctx:
-                    d_dev = self._h2d(d, sh)
-                    sh.state = rebase(sh.state, d_dev)
-                    if self._multi > 1 and parked.any():
-                        # the device-resident residual inbox carries
-                        # indexes in DESTINATION units: shift the
-                        # index-valued fields of each parked message by
-                        # its destination lane's delta (type-aware,
-                        # mirroring which fields _pack_wire stages per
-                        # message type). Rare path — eager device ops.
-                        rebase_resid(sh.resid, d_dev)
+                    # the device-resident residual inbox carries indexes
+                    # in DESTINATION units: with parked messages, the same
+                    # launch shifts the index-valued fields of each by its
+                    # destination lane's delta (type-aware, mirroring
+                    # which fields _pack_wire stages per message type)
+                    resid = sh.resid if self._multi > 1 and parked.any() else None
+                    sh.state = rebase_lanes(sh.state, self._h2d(d, sh), resid)
 
     # ----------------------------------------------------------- reconciles
     def _apply_reconciles(self) -> None:

@@ -434,6 +434,14 @@ def rebase_bytes(state: RaftTensors) -> int:
     return 4 * state.term.shape[0] + 2 * nb
 
 
+def rebase_resid_bytes(resid) -> int:
+    """The residual inbox's part of a rebase (csrc/rebase.cu with a
+    residual inbox): mtype read once, log_index, commit and hint read once
+    and written once."""
+    G, K = resid.mtype.shape
+    return 4 * G * K * (1 + 2 * 3)
+
+
 def ring_gather_bytes(n: int, words: int) -> int:
     """n records of `words` i32 read once, n stacks of n records written
     once."""

@@ -32,6 +32,9 @@ launches on PyTorch's current stream and counts the launch in LAUNCHES):
 - `activate_cuda`: `csrc/activate.cu`, one batch of lane activation: every
   plane the engine's bring-up writes, for the lane rows of ONE packed
   buffer (`activation_layout`), in one launch.
+- `rebase_cuda`: `csrc/rebase.cu`, the window rebase: the state's index
+  planes and, when given, the residual inbox's, shifted by each lane's
+  delta in place, in one launch.
 
 `multi_step_cuda` and `sharded_multi_step_cuda` drive a whole super-step:
 stacked outputs allocated once per call, step t's kernels writing slice t,
@@ -74,7 +77,7 @@ NVCC_FLAGS = (
 #: nowhere else
 LAUNCHES: Dict[str, int] = {
     "step_batch": 0, "route_columns": 0, "route_index": 0, "route_scatter": 0,
-    "ring_gather": 0, "activate": 0,
+    "ring_gather": 0, "activate": 0, "rebase": 0,
 }
 
 #: a free slot of the scatter's per-lane candidate lists (csrc/route.cu)
@@ -88,7 +91,7 @@ PTXAS: Dict[str, str] = {}
 #: (profile.CompileWatch counts builds through it)
 BUILD_LISTENERS: List = []
 
-_SOURCES = ("step_batch.cu", "route.cu", "ring_gather.cu", "activate.cu")
+_SOURCES = ("step_batch.cu", "route.cu", "ring_gather.cu", "activate.cu", "rebase.cu")
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -137,7 +140,7 @@ def build_kernels() -> Dict[str, str]:
 
 
 _KERNELS = ("step_batch_kernel", "route_columns_kernel", "route_index_kernel",
-            "route_scatter_kernel", "ring_gather_kernel", "activate_kernel")
+            "route_scatter_kernel", "ring_gather_kernel", "activate_kernel", "rebase_kernel")
 
 
 def kernel_resources() -> Dict[str, Dict[str, int]]:
@@ -314,33 +317,44 @@ def packed_views(buf: torch.Tensor, layout):
     return {name: buf[o:o + nb].view(dt).view(shape) for name, shape, dt, o, nb in spans}
 
 
-class ActPlane(ctypes.Structure):
-    """Mirror of `struct ActPlane` in csrc/activate.cu."""
+class ActSmall(ctypes.Structure):
+    """Mirror of `struct ActSmall` in csrc/activate.cu: one scalar or row
+    plane."""
 
-    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p),
-                ("first_block", ctypes.c_int64)] + [
-        (n, ctypes.c_int32) for n in ("width", "src_width", "elem", "fill")]
+    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p), ("fill", ctypes.c_int32)] + [
+        (n, ctypes.c_int8) for n in ("width", "elem", "bcast", "pad")]
 
 
-#: most planes one activation launch writes (csrc/activate.cu)
-ACT_MAX_PLANES = 64
-#: elements of one plane an activation block writes (csrc/activate.cu)
-ACT_ELEMS = 1024
+class ActWindow(ctypes.Structure):
+    """Mirror of `struct ActWindow` in csrc/activate.cu: one [W] plane."""
+
+    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p), ("row_bytes", ctypes.c_int64)]
+
+
+#: most scalar and row planes one activation launch writes (csrc/activate.cu)
+ACT_MAX_SMALL = 56
+#: lane rows of one activation block (csrc/activate.cu)
+ACT_TILE = 8
+#: widest row plane the activation kernel writes (csrc/activate.cu)
+ACT_MAX_ROW = 8
+#: the [W] planes, which activation copies a warp to a lane row
+ACT_WINDOW = ("log_term", "log_is_cc")
 
 
 class ActivateParams(ctypes.Structure):
     """Mirror of `struct ActivateParams` in csrc/activate.cu."""
 
-    _fields_ = [("rows", ctypes.c_void_p), ("planes", ActPlane * ACT_MAX_PLANES),
-                ("blocks", ctypes.c_int64)] + [
-        (n, ctypes.c_int32) for n in ("n", "G", "n_planes")]
+    _fields_ = [("rows", ctypes.c_void_p), ("window", ActWindow * 2),
+                ("small", ActSmall * ACT_MAX_SMALL)] + [
+        (n, ctypes.c_int32) for n in ("n", "G", "n_small")]
 
 
 def activate_params(s: RaftTensors, packed: torch.Tensor, n: int) -> ActivateParams:
     """Check one activation batch (the state's planes and the packed buffer
-    of n lane rows, on one device) and fill the kernel's struct: per
-    written plane its destination, its source column in the buffer (none
-    for a constant), its widths and its first block."""
+    of n lane rows, on one device) and fill the kernel's struct: the two
+    [W] planes' destinations and source rows, then per scalar or row plane
+    its destination, its source column in the buffer (none for a
+    constant), its width and its element size, ordered by those."""
     what = "activate"
     G, P = s.member.shape
     W = s.log_term.shape[1]
@@ -349,6 +363,8 @@ def activate_params(s: RaftTensors, packed: torch.Tensor, n: int) -> ActivatePar
         raise ValueError(f"{what}: the packed buffer must be a tensor on {dev}")
     if not packed.is_contiguous():
         raise ValueError(f"{what}: the packed buffer must be contiguous")
+    if W <= 0 or W & (W - 1):
+        raise ValueError(f"{what}: the log window must be a power of two, got {W}")
     v = packed_views(packed, activation_layout(n, P, W))
     writes = [(name, v[name], 0) for name in ACT_SET]
     writes += [(name, None, 0) for name in ACT_ZERO]
@@ -356,22 +372,35 @@ def activate_params(s: RaftTensors, packed: torch.Tensor, n: int) -> ActivatePar
                ("rstate", None, RSTATE.RETRY)]
     p = ActivateParams()
     p.rows = v["rows"].data_ptr()
-    block = 0
-    for q, (name, src, fill) in enumerate(writes):
+    small = []
+    for name, src, fill in writes:
         t = getattr(s, name)
-        width = t[0].numel()
         _check(what, name, t, (G,) + tuple(t.shape[1:]), t.dtype, dev)
-        a = p.planes[q]
-        a.dst, a.src = t.data_ptr(), (src.data_ptr() if src is not None else None)
-        a.width, a.elem, a.fill = width, t.element_size(), fill
-        a.src_width = 1 if src is None else src[0].numel()
         if src is not None and src.dtype != t.dtype:
             raise ValueError(f"{what}: column {name} is {src.dtype}, its plane {t.dtype}")
-        a.first_block = block
-        block += -(-n * width // ACT_ELEMS)
-    if n * max(P, W, s.ri_ctx.shape[1]) >= 2**31:
-        raise ValueError(f"{what}: {n} lane rows of {max(P, W)} elements exceed 2^31")
-    p.blocks, p.n, p.G, p.n_planes = block, n, G, len(writes)
+        if name in ACT_WINDOW:
+            a = p.window[ACT_WINDOW.index(name)]
+            a.dst, a.src, a.row_bytes = t.data_ptr(), src.data_ptr(), t[0].numel() * t.element_size()
+            continue
+        width = t[0].numel()
+        if width > ACT_MAX_ROW:
+            raise ValueError(f"{what}: {name} has {width} elements a lane, at most {ACT_MAX_ROW}")
+        kind = 2 if src is None else int(src[0].numel() == 1 and width > 1)
+        if kind == 0 and width > 1 and t.element_size() == 4:
+            raise ValueError(f"{what}: {name} is an i32 row of distinct values, which the "
+                             "kernel does not write")
+        small.append(((width, -t.element_size(), kind), name, t, src, fill))
+    if len(small) > ACT_MAX_SMALL:
+        raise ValueError(f"{what}: {len(small)} planes, at most {ACT_MAX_SMALL}")
+    # by width, element size and source (a column, one value a lane, a
+    # constant): a warp's (plane, row) threads cover four neighbouring
+    # planes, which then mostly take one path; the scalar planes first
+    for q, (_cls, name, t, src, fill) in enumerate(sorted(small, key=lambda x: x[0])):
+        a = p.small[q]
+        a.dst, a.src = t.data_ptr(), (src.data_ptr() if src is not None else None)
+        a.fill, a.width, a.elem = fill, t[0].numel(), t.element_size()
+        a.bcast = int(src is not None and src[0].numel() == 1 and a.width > 1)
+    p.n, p.G, p.n_small = n, G, len(small)
     return p
 
 
@@ -385,6 +414,72 @@ def activate_cuda(s: RaftTensors, packed: torch.Tensor, n: int) -> RaftTensors:
     return s
 
 
+# ------------------------------------------------------------- rebase
+
+#: the index scalars and the index rows the rebase shifts, in the order of
+#: csrc/rebase.cu's struct (ops/state.py:rebase)
+REBASE_SCALARS = ("first_index", "last_index", "committed", "processed", "applied",
+                  "unsaved_from")
+REBASE_ROWS = ("match", "next", "snap_sent", "ri_index")
+#: the residual inbox planes the rebase reads and shifts
+REBASE_RESID = ("mtype", "log_index", "commit", "hint")
+#: widest P, R and K the rebase kernel takes
+REBASE_MAX_WIDTH = 8
+
+
+class RebaseParams(ctypes.Structure):
+    """Mirror of `struct RebaseParams` in csrc/rebase.cu."""
+
+    _fields_ = [("delta", ctypes.c_void_p), ("scalars", ctypes.c_void_p * 6),
+                ("rows", ctypes.c_void_p * 4)] + [
+        ("r_" + n, ctypes.c_void_p) for n in REBASE_RESID] + [
+        (n, ctypes.c_int32) for n in (
+            "G", "P", "R", "K", "t_replicate", "t_replicate_resp", "t_read_index_resp",
+            "t_request_vote", "t_heartbeat")]
+
+
+def rebase_params(s: RaftTensors, delta: torch.Tensor,
+                  resid: Optional[Inbox] = None) -> RebaseParams:
+    """Check one rebase (the state's planes, the i32 [G] delta and, when
+    given, the residual inbox, on one device) and fill the kernel's
+    struct."""
+    what = "rebase"
+    G, P = s.match.shape
+    R = s.ri_index.shape[1]
+    dev = s.term.device
+    p = RebaseParams()
+    p.delta = _check(what, "delta", delta, (G,), torch.int32, dev)
+    for q, name in enumerate(REBASE_SCALARS):
+        p.scalars[q] = _check(what, name, getattr(s, name), (G,), torch.int32, dev)
+    for q, name in enumerate(REBASE_ROWS):
+        t = getattr(s, name)
+        p.rows[q] = _check(what, name, t, (G, R if name == "ri_index" else P), torch.int32, dev)
+    K = 0
+    if resid is not None:
+        K = resid.mtype.shape[1]
+        for name in REBASE_RESID:
+            setattr(p, "r_" + name, _check(what, "resid." + name, getattr(resid, name), (G, K),
+                                           torch.int32, dev))
+    if max(P, R, K) > REBASE_MAX_WIDTH:
+        raise ValueError(f"{what}: P={P}, R={R}, K={K}: at most {REBASE_MAX_WIDTH} each")
+    p.G, p.P, p.R, p.K = G, P, R, K
+    p.t_replicate, p.t_replicate_resp = MSG.REPLICATE, MSG.REPLICATE_RESP
+    p.t_read_index_resp, p.t_request_vote = MSG.READ_INDEX_RESP, MSG.REQUEST_VOTE
+    p.t_heartbeat = MSG.HEARTBEAT
+    return p
+
+
+def rebase_cuda(s: RaftTensors, delta: torch.Tensor,
+                resid: Optional[Inbox] = None) -> RaftTensors:
+    """The window rebase on the card (csrc/rebase.cu): the state's index
+    planes and, when `resid` is given, the residual inbox's index fields
+    shifted by each lane's delta, in place, on the current stream. Returns
+    the state."""
+    dev = _on_cuda(s.term, "rebase")
+    _Launcher(dev)("rebase_launch", rebase_params(s, delta, resid), "rebase")
+    return s
+
+
 # source -> (launch function, its parameter struct, the struct-size query)
 _ENTRIES = {
     "step_batch.cu": (("step_batch_launch", StepParams, "step_batch_params_size"),),
@@ -395,6 +490,7 @@ _ENTRIES = {
     ),
     "ring_gather.cu": (("ring_gather_launch", RingGatherParams, "ring_gather_params_size"),),
     "activate.cu": (("activate_launch", ActivateParams, "activate_params_size"),),
+    "rebase.cu": (("rebase_launch", RebaseParams, "rebase_params_size"),),
 }
 
 

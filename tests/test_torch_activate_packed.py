@@ -10,8 +10,12 @@ tests/test_torch_engine_activate.py builds them, every plane bit-equal:
 - the layout's round trip: a packed buffer unpacks to the values it was
   packed from;
 - the kernel's per-block code built as host C++ (g++; skipped without it)
-  over every block and thread of a launch, with the parameter struct
-  `ops/cuda.py` fills for the card, against `activate_packed_reference`;
+  over every block and thread of a launch (each block's tile of lane rows
+  loaded first, as its shared memory is on the card), with the parameter
+  struct `ops/cuda.py` fills for the card, against
+  `activate_packed_reference`: P 3-5, W 16-256, ragged last tiles, padding,
+  scattered and consecutive rows, rows outside the state, and planes off
+  their 16-byte boundaries;
 - the engine's CPU bring-up of 3 x 16 groups through NodeHost: every batch
   the engine writes equals, plane for plane, what `activate_lanes_reference`
   writes for the same lanes and values on a copy of the state before it;
@@ -126,11 +130,17 @@ _HOST_MAIN = r"""
 #include "activate.cu"
 
 extern "C" int activate_host_params_size() { return (int)sizeof(ActivateParams); }
+extern "C" int activate_host_tile() { return AC_TILE; }
 
-// every thread of every block of a launch of `threads`-thread blocks
+// every block of a launch of `threads`-thread blocks: its first AC_TILE
+// threads load the tile (the kernel's shared memory), then every thread
 extern "C" void activate_host(const ActivateParams* p, int threads) {
-  for (int64_t b = 0; b < p->blocks; ++b)
-    for (int t = 0; t < threads; ++t) activate_block(*p, b, t, threads);
+  const int64_t blocks = (p->n + AC_TILE - 1) / AC_TILE;
+  for (int64_t b = 0; b < blocks; ++b) {
+    ActTile tile;
+    for (int t = 0; t < AC_TILE; ++t) activate_tile_row(*p, b, t, tile);
+    for (int t = 0; t < threads; ++t) activate_block(*p, b, t, threads, tile);
+  }
 }
 """
 
@@ -148,10 +158,11 @@ def host_lib(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     so.activate_host.argtypes = [ctypes.c_void_p, ctypes.c_int]
     assert so.activate_host_params_size() == ctypes.sizeof(cuda.ActivateParams)
+    assert so.activate_host_tile() == cuda.ACT_TILE
     return so
 
 
-@pytest.mark.parametrize("threads", [256, 96])
+@pytest.mark.parametrize("threads", [256, 96, 384])
 @pytest.mark.parametrize("bucket,n,P,W,G", [(1, 1, 3, 16, 80), (16, 11, 5, 32, 80),
                                             (64, 50, 4, 64, 80), (256, 200, 5, 256, 300)])
 def test_kernel_blocks_on_the_host_match_the_plain_version(host_lib, threads, bucket, n, P,
@@ -164,12 +175,69 @@ def test_kernel_blocks_on_the_host_match_the_plain_version(host_lib, threads, bu
                                         bucket)
     got = state_from_numpy(arrays, device="cpu")
     params = cuda.activate_params(got, host, bucket)
-    assert params.n_planes == len(cuda.ACT_SET) + len(cuda.ACT_ZERO) + 3
-    # the [W] rows span several blocks of their plane
-    assert params.blocks > params.n_planes or bucket * W <= cuda.ACT_ELEMS
+    # every plane but the two [W] planes is a scalar or row plane, ordered
+    # by width (the scalars first); the [W] rows are W elements a lane
+    assert params.n_small == len(cuda.ACT_SET) + len(cuda.ACT_ZERO) + 3 - 2
+    widths = [params.small[q].width for q in range(params.n_small)]
+    assert widths == sorted(widths) and widths[0] == 1 and max(widths) == max(P, 4)
+    assert [params.window[q].row_bytes for q in (0, 1)] == [4 * W, W]
     host_lib.activate_host(ctypes.byref(params), threads)
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def offset_view(t, k):
+    """A contiguous copy of `t` that starts k elements into a buffer of its
+    own: k=1 puts every row off its 16-, 8- and 4-byte boundaries."""
+    flat = torch.empty(t.numel() + k, dtype=t.dtype)
+    v = flat[k:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+# the tile decomposition: P 4 and 5; W 16, 32 and 256; a bucket whose last
+# tile is ragged (bucket % ACT_TILE != 0), with padding rows; lane rows
+# scattered or consecutive (a bring-up's); rows outside [0, G) in the
+# middle of the batch; and planes off their 16-byte boundaries
+TILE_CASES = [(P, W, rows, bad, shifted) for P in (4, 5) for W in (16, 32, 256)
+              for rows, bad, shifted in (("scattered", False, False),
+                                         ("consecutive", False, False),
+                                         ("scattered", True, False))] + [
+    (4, 16, "consecutive", False, True), (5, 32, "scattered", True, True),
+    (4, 256, "scattered", False, True)]
+
+
+@pytest.mark.parametrize("P,W,order,out_of_range,shifted", TILE_CASES)
+def test_kernel_tiles_on_the_host_match_the_plain_version(host_lib, P, W, order, out_of_range,
+                                                           shifted):
+    G, n, bucket = 120, 21, 29
+    assert bucket % cuda.ACT_TILE and -(-bucket // cuda.ACT_TILE) == 4
+    _cfg, rng, arrays = seeded(P * 1000 + W + 7 * out_of_range + 3 * shifted, P, W, groups=G)
+    if order == "consecutive":
+        start = int(rng.integers(0, G - n))
+        rows = list(range(start, start + n))
+    else:
+        rows = rng.choice(G, n, replace=False).tolist()
+    vals = lane_values(rng, n, P, W)
+    host = TV.pack_activation(rows, vals, bucket, P, W)
+    keep = list(range(n))
+    if out_of_range:
+        # rows 3 and 11 are made -1 and G in the buffer: they write nothing
+        packed_rows = TV.unpack_activation(host, bucket, P, W)[0]
+        packed_rows[3], packed_rows[11] = -1, G
+        keep = [i for i in keep if i not in (3, 11)]
+    want = state_from_numpy(arrays, device="cpu")
+    TV.activate_packed_reference(
+        want, TV.pack_activation([rows[i] for i in keep], [vals[i] for i in keep], len(keep),
+                                 P, W), len(keep))
+    got = state_from_numpy(arrays, device="cpu")
+    assert torch.equal(TV.unpack_activation(host, bucket, P, W)[0][n:],
+                       torch.full((bucket - n,), rows[-1], dtype=torch.int32))
+    for threads in (384, 256, 96):
+        work = type(got)(*(offset_view(t, 1) if shifted else t.clone() for t in got))
+        host_lib.activate_host(ctypes.byref(cuda.activate_params(work, host, bucket)), threads)
+        for f in work._fields:
+            assert torch.equal(getattr(work, f), getattr(want, f)), (threads, f)
 
 
 def test_kernel_skips_rows_outside_the_state(host_lib):
@@ -185,6 +253,15 @@ def test_kernel_skips_rows_outside_the_state(host_lib):
     TV.activate_packed_reference(want, one, 1)
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_activate_params_refuse_a_window_that_is_not_a_power_of_two():
+    cfg = KernelConfig(groups=4, peers=3, log_window=24, inbox_depth=4,
+                       max_entries_per_msg=8, readindex_depth=4)
+    s = init_state(cfg, device="cpu")
+    vals = lane_values(np.random.default_rng(1), 1, 3, 24)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda.activate_params(s, TV.pack_activation([0], vals, 1, 3, 24), 1)
 
 
 class Counter(IStateMachine):
